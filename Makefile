@@ -22,4 +22,4 @@ multichip-dryrun:
 
 clean:
 	$(MAKE) -C native clean
-	rm -rf .pytest_cache postgres_word2vec_tpu/__pycache__
+	rm -rf .pytest_cache postgres_word2vec/__pycache__

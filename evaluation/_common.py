@@ -17,11 +17,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from postgres_word2vec_tpu import Freddy, VectorStore
-from postgres_word2vec_tpu.models.ivfadc import IVFADCIndex
-from postgres_word2vec_tpu.models.ivpq import IVPQIndex
-from postgres_word2vec_tpu.models.pq import PQIndex
-from postgres_word2vec_tpu.utils.config import Configuration
+from postgres_word2vec import Freddy, VectorStore
+from postgres_word2vec.models.ivfadc import IVFADCIndex
+from postgres_word2vec.models.ivpq import IVPQIndex
+from postgres_word2vec.models.pq import PQIndex
+from postgres_word2vec.utils.config import Configuration
 
 
 def engine_from_config(cfg: Configuration) -> Freddy:
@@ -34,7 +34,7 @@ def engine_from_config(cfg: Configuration) -> Freddy:
             # the calibrated GoogleNews-like generator (the bench dataset).
             import jax
 
-            from postgres_word2vec_tpu.evaluation import synth
+            from postgres_word2vec.evaluation import synth
             vecs = np.asarray(synth.generate_wordlike(
                 jax.random.PRNGKey(syn.get("seed", 0)), syn["n"],
                 syn.get("d", 300)))

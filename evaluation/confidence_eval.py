@@ -15,8 +15,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _common import engine_from_config, sample_words
 
-from postgres_word2vec_tpu.evaluation import confidence_eval
-from postgres_word2vec_tpu.utils.config import Configuration
+from postgres_word2vec.evaluation import confidence_eval
+from postgres_word2vec.utils.config import Configuration
 
 
 def main(config_path: str) -> None:
@@ -35,8 +35,8 @@ def main(config_path: str) -> None:
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     if len(sys.argv) != 2:
         print(__doc__)
         sys.exit(1)

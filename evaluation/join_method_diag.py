@@ -33,9 +33,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def log(msg):
@@ -43,9 +40,9 @@ def log(msg):
 
 
 def main():
-    from postgres_word2vec_tpu.evaluation import synth
-    from postgres_word2vec_tpu.models.exact import exact_top_k_in
-    from postgres_word2vec_tpu.models.ivpq import (IVPQIndex,
+    from postgres_word2vec.evaluation import synth
+    from postgres_word2vec.models.exact import exact_top_k_in
+    from postgres_word2vec.models.ivpq import (IVPQIndex,
                                                    build_statistics)
 
     small = bool(int(os.environ.get("BENCH_SMALL", "0")))
@@ -120,6 +117,6 @@ def main():
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     main()

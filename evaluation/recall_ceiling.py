@@ -7,14 +7,14 @@ reference trains codebooks with scipy ``kmeans(train, k, iter=10)`` —
 i.e. 10 RESTARTS of Lloyd run to convergence, best distortion wins
 (quantizer_creation.py:13-33) — and encodes with exact 1-NN (faiss,
 pq_index.py:31-63). The "reference" quality profile below reproduces those
-semantics on TPU (restarts=10, 30 Lloyd iterations ≈ converged, random-row
+semantics on the device (restarts=10, 30 Lloyd iterations ≈ converged, random-row
 init); the search stage (full ADC scan / IVFADC w=3 probe / exact re-rank) is
 identical math in every implementation, so the resulting recall is the
 *data geometry's* ceiling for FREDDY's method class at these parameters.
 
 Usage:
   python evaluation/recall_ceiling.py --gen v2 --n 307200 \
-      --quality reference --out reports/recall_ceiling_v2.json
+      --quality reference --out chiprun_out/recall_ceiling.json
 
 Interpretation: if the ceiling on a generator is far below FREDDY's
 published operating points (PQ 0.38 / PQ+PV 0.87 / IVFADC 0.35 /
@@ -37,9 +37,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 import numpy as np
 
-from postgres_word2vec_tpu.utils.config import apply_platform_from_env
+from postgres_word2vec.utils.config import init_compile_cache
 
-apply_platform_from_env()
+init_compile_cache()
 
 QUALITY = {
     # scipy kmeans(iter=10): 10 restarts, converged Lloyd, random-row init.
@@ -80,15 +80,10 @@ def main():
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
-    from postgres_word2vec_tpu.evaluation import synth
-    from postgres_word2vec_tpu.models.exact import exact_top_k
-    from postgres_word2vec_tpu.models.ivfadc import IVFADCIndex
-    from postgres_word2vec_tpu.models.pq import PQIndex
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from postgres_word2vec.evaluation import synth
+    from postgres_word2vec.models.exact import exact_top_k
+    from postgres_word2vec.models.ivfadc import IVFADCIndex
+    from postgres_word2vec.models.pq import PQIndex
 
     q = QUALITY[args.quality]
     log(f"recall_ceiling: gen={args.gen} n={args.n} quality={args.quality} "

@@ -4,8 +4,8 @@ throughput of each hot kernel at 3M×300 scale.
 
     python evaluation/roofline.py [--small]
 
-Prints one JSON document: device ceilings (HBM stream GB/s, bf16/int8 MXU
-TFLOPs) and, per kernel, the achieved rate and its roofline fraction given
+Prints one JSON document: measured device ceilings (memory stream GB/s,
+bf16/int8 matmul TFLOP/s) and, per kernel, the achieved rate and its roofline fraction given
 the kernel's arithmetic intensity. This quantifies the "every hot kernel at
 speed-of-light" claim — the exact/ADC scans are HBM-streaming kernels, so
 their bound is the measured stream rate, not peak FLOPs.
@@ -44,9 +44,9 @@ def timeit(fn, *args, iters=5):
 
 def measure_ceilings() -> dict:
     out = {}
-    # HBM stream: best of three read-dominated probes — a reduction can be
-    # VPU-bound, so also probe with a B=8 matmul over a large table (reads
-    # table once; FLOPs are negligible vs the MXU).
+    # memory stream: best of three read-dominated probes — a reduction can
+    # be ALU-bound, so also probe with a B=8 matmul over a large table
+    # (reads the table once; its FLOPs are negligible).
     n = 256 * 1024 * 1024  # 512 MB bf16
     x = jnp.ones((n,), jnp.bfloat16)
     t = timeit(jax.jit(lambda a: jnp.sum(a.astype(jnp.float32))), x)
@@ -63,28 +63,28 @@ def measure_ceilings() -> dict:
     out["hbm_read_gbps"] = max(rates)
     out["hbm_probe_gbps"] = rates
 
-    # bf16 MXU peak: large square matmul (compute >> memory).
+    # bf16 matmul peak: large square matmul (compute >> memory).
     m = 16384
     a = jnp.ones((m, m), jnp.bfloat16)
     g = jax.jit(lambda p, q: jnp.dot(p, q,
                                      preferred_element_type=jnp.float32))
     t = timeit(g, a, a)
-    out["mxu_bf16_tflops"] = 2 * m**3 / t / 1e12
+    out["matmul_bf16_tflops"] = 2 * m**3 / t / 1e12
 
-    # int8 MXU rate.
+    # int8 matmul rate.
     ai = jnp.ones((m, m), jnp.int8)
     h = jax.jit(lambda p, q: jnp.dot(p, q,
                                      preferred_element_type=jnp.int32))
     t = timeit(h, ai, ai)
-    out["mxu_int8_tops"] = 2 * m**3 / t / 1e12
+    out["matmul_int8_tops"] = 2 * m**3 / t / 1e12
     del a, ai
     return out
 
 
 def measure_kernels(n: int, d: int) -> dict:
-    from postgres_word2vec_tpu.evaluation import synth
-    from postgres_word2vec_tpu.models.exact import ExactIndex
-    from postgres_word2vec_tpu.models.pq import PQIndex
+    from postgres_word2vec.evaluation import synth
+    from postgres_word2vec.models.exact import ExactIndex
+    from postgres_word2vec.models.pq import PQIndex
 
     V = synth.generate_wordlike(jax.random.PRNGKey(0), n, d)
     out = {}
@@ -107,22 +107,21 @@ def measure_kernels(n: int, d: int) -> dict:
         "flops": 2 * B * n * d,
         "gbps": n * d / t / 1e9,
         "tops": 2 * B * n * d / t / 1e12,
-        "note": "int8 table + int8 MXU matmul"}
+        "note": "int8 table + int8 matmul"}
     del ex8
 
     Bq = 64
     pq = PQIndex.build(jax.random.PRNGKey(1), V, m=12, k=256,
                        train_size=100_000, iters=10)
-    ct = pq.transposed_codes()
     t = timeit(lambda q: pq.search(q, 10), V[:Bq])
-    m, k = 12, 256
+    m = 12
     out["pq_adc_scan"] = {
-        "wall_s": t, "bytes": int(ct.shape[1]) * m * 4,
-        "flops": 2 * Bq * int(ct.shape[1]) * k * m,
-        "gbps": int(ct.shape[1]) * m * 4 / t / 1e9,
-        "tflops": 2 * Bq * int(ct.shape[1]) * k * m / t / 1e12,
-        "note": f"B={Bq} Pallas matmul-scan; FLOPs count the one-hot "
-                f"formulation (k per code read)"}
+        "wall_s": t, "bytes": n * m,
+        "flops": Bq * n * m,
+        "gbps": n * m / t / 1e9,
+        "tflops": Bq * n * m / t / 1e12,
+        "note": f"B={Bq} Triton ADC scan; FLOPs count one add per LUT "
+                f"lookup (B·N·m)"}
     return out
 
 
@@ -134,23 +133,23 @@ def main() -> None:
     for v in kern.values():
         if "tops" in v:
             v["roofline"] = "compute" if (
-                v["tops"] / ceil["mxu_int8_tops"]
+                v["tops"] / ceil["matmul_int8_tops"]
                 > v["gbps"] / ceil["hbm_read_gbps"]) else "memory"
             v["pct_of_bound"] = round(100 * max(
-                v["tops"] / ceil["mxu_int8_tops"],
+                v["tops"] / ceil["matmul_int8_tops"],
                 v["gbps"] / ceil["hbm_read_gbps"]), 1)
         else:
             v["roofline"] = "compute" if (
-                v["tflops"] / ceil["mxu_bf16_tflops"]
+                v["tflops"] / ceil["matmul_bf16_tflops"]
                 > v["gbps"] / ceil["hbm_read_gbps"]) else "memory"
             v["pct_of_bound"] = round(100 * max(
-                v["tflops"] / ceil["mxu_bf16_tflops"],
+                v["tflops"] / ceil["matmul_bf16_tflops"],
                 v["gbps"] / ceil["hbm_read_gbps"]), 1)
     print(json.dumps({"n": n, "d": d, "ceilings": ceil,
                       "kernels": kern}, indent=2))
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     main()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Capacity-scale kNN-join: 5k queries joined against a 10.24M-row target
-set on one TPU chip — the selectivity regime ``ivpq_search_in`` exists for
+set on one GPU — the selectivity regime ``ivpq_search_in`` exists for
 (/root/reference/freddy_extension/ivpq_search_in.c:355-401: fetch only the
 probed cells so cost scales with selectivity, not |T|).
 
@@ -16,7 +16,7 @@ pass, ground truth on HOST numpy (the post-build allocator cannot satisfy
 large fresh device allocations, see scale_capacity.py notes).
 
 Usage: python evaluation/scale_join_10M.py [--n 10240000] [--nq 5000]
-       [--out reports/scale_join_10M.json]
+       [--out chiprun_out/scale_join_10M.json]
 """
 
 from __future__ import annotations
@@ -33,13 +33,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(
-                      os.path.dirname(os.path.abspath(__file__))),
-                      ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from postgres_word2vec_tpu.evaluation.benchutil import (
+from postgres_word2vec.evaluation.benchutil import (
     host_exact_topk, log, log_mem, recall_at_k)
 
 
@@ -55,8 +50,7 @@ def main() -> None:
     ap.add_argument("--alphas", default="600,1200,2400,4800")
     # 10M rows need a finer coarse grid than the 3M bench's 1024 cells:
     # at 1024 cells a cell holds ~10k rows, so an alpha-bounded probe
-    # reaches only 1-2 cells and recall@5 collapsed to 0.16-0.58 in the
-    # first run (reports/scale_join_10M_kc1024.json); 4096 cells restore
+    # reaches only 1-2 cells and recall@5 collapses; 4096 cells restore
     # the ~2.5k rows/cell granularity the 3M operating points have.
     ap.add_argument("--k-coarse", type=int, default=4096)
     ap.add_argument("--out", default=os.path.join(
@@ -64,12 +58,12 @@ def main() -> None:
         "scale_join_10M.json"))
     args = ap.parse_args()
 
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
 
-    from postgres_word2vec_tpu.evaluation import synth
-    from postgres_word2vec_tpu.models.exact import exact_top_k_precast
-    from postgres_word2vec_tpu.models.ivpq import (IVPQIndex,
+    from postgres_word2vec.evaluation import synth
+    from postgres_word2vec.models.exact import exact_top_k_precast
+    from postgres_word2vec.models.ivpq import (IVPQIndex,
                                                    build_statistics)
 
     N, D, NQ = args.n, args.d, args.nq

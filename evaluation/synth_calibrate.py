@@ -4,9 +4,8 @@
 Round 2 calibrated the v2 generator on the PQ *scan* point (ref-equivalent
 quantizer: pq@5 0.399 vs FREDDY's published 0.38 at 3M) but not the PV
 point (pq_pv@5 0.801 vs published 0.87) — so the production build's 0.80 at
-pvf=20 is the data geometry's ceiling, not a quantizer gap
-(reports/recall_ceiling_v2_3M.json: the best-of-10 converged-Lloyd control
-scores the same 0.80).
+pvf=20 is the data geometry's ceiling, not a quantizer gap (the best-of-10
+converged-Lloyd control of ``recall_ceiling.py`` scores the same 0.80).
 
 This sweep searches generator parameters for a v3 whose ref-equivalent
 ceiling hits BOTH points. The lever: the gap between a row's true sibling
@@ -34,13 +33,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 import numpy as np
 
-from postgres_word2vec_tpu.utils.config import apply_platform_from_env
+from postgres_word2vec.utils.config import init_compile_cache
 
-apply_platform_from_env()
+init_compile_cache()
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 #: candidate generator parameter sets. "v2" is the shipped calibration
 #: (the baseline); the candidates push the sibling/distractor gap.
@@ -139,9 +135,9 @@ def main():
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
-    from postgres_word2vec_tpu.evaluation import synth
-    from postgres_word2vec_tpu.models.exact import exact_top_k
-    from postgres_word2vec_tpu.models.pq import PQIndex
+    from postgres_word2vec.evaluation import synth
+    from postgres_word2vec.models.exact import exact_top_k
+    from postgres_word2vec.models.pq import PQIndex
 
     names = (args.configs.split(",") if args.configs
              else list(CONFIGS))

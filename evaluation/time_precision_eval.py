@@ -20,10 +20,10 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _common import engine_from_config, sample_words
 
-from postgres_word2vec_tpu.evaluation import (calculate_precision,
+from postgres_word2vec.evaluation import (calculate_precision,
                                               get_exact_results,
                                               time_precision_sweep)
-from postgres_word2vec_tpu.utils.config import Configuration
+from postgres_word2vec.utils.config import Configuration
 
 
 def main(config_path: str) -> None:
@@ -55,11 +55,12 @@ def main(config_path: str) -> None:
                     "precision": calculate_precision(rows, exact)})
     plot_path = cfg.get_value_or("plot_path", "")
     if plot_path:
-        from postgres_word2vec_tpu.evaluation.plots import plot_time_precision
+        from postgres_word2vec.evaluation.plots import plot_time_precision
+        Path(plot_path).parent.mkdir(parents=True, exist_ok=True)
         plot_time_precision(records, plot_path)
         # interactive twin (reference evaluation_utils.py:240-344 emits
         # plotly-offline HTML; ours is the self-contained SVG report)
-        from postgres_word2vec_tpu.evaluation.html_report import (
+        from postgres_word2vec.evaluation.html_report import (
             figure_from_records, write_html_report)
         html_path = str(Path(plot_path).with_suffix(".html"))
         write_html_report(
@@ -72,8 +73,8 @@ def main(config_path: str) -> None:
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     if len(sys.argv) != 2:
         print(__doc__)
         sys.exit(1)

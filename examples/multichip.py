@@ -6,8 +6,8 @@
 
 Shows the four sharded paths: data-parallel codebook training, rows-sharded
 exact and PQ-ADC search, cell-partitioned IVFADC probing, and the
-target-sharded IVPQ join. On real hardware the same code runs unchanged
-over ICI-connected chips.
+target-sharded IVPQ join. On a multi-GPU host the same code runs unchanged
+over NVLink-connected cards.
 """
 
 import sys
@@ -15,20 +15,20 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from postgres_word2vec_tpu.utils.config import apply_platform_from_env
+from postgres_word2vec.utils.config import init_compile_cache
 
-apply_platform_from_env()
+init_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from postgres_word2vec_tpu.models import ivpq as ivpq_mod
-from postgres_word2vec_tpu.models.ivfadc import IVFADCIndex
-from postgres_word2vec_tpu.models.ivpq import IVPQIndex
-from postgres_word2vec_tpu.models.pq import PQIndex
-from postgres_word2vec_tpu.ops import lut
-from postgres_word2vec_tpu.parallel import sharding
+from postgres_word2vec.models import ivpq as ivpq_mod
+from postgres_word2vec.models.ivfadc import IVFADCIndex
+from postgres_word2vec.models.ivpq import IVPQIndex
+from postgres_word2vec.models.pq import PQIndex
+from postgres_word2vec.ops import lut
+from postgres_word2vec.parallel import sharding
 
 
 def main() -> None:

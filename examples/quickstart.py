@@ -12,13 +12,13 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from postgres_word2vec_tpu.utils.config import apply_platform_from_env
+from postgres_word2vec.utils.config import init_compile_cache
 
-apply_platform_from_env()
+init_compile_cache()
 
 import numpy as np
 
-from postgres_word2vec_tpu import Freddy, VectorStore
+from postgres_word2vec import Freddy, VectorStore
 
 
 def main() -> None:

@@ -4,7 +4,7 @@
     JAX_PLATFORMS=cpu python examples/serving.py
 
 Builds a small engine, persists it with ``Freddy.save``, starts the query
-server in-process (the same runtime ``python -m postgres_word2vec_tpu.server
+server in-process (the same runtime ``python -m postgres_word2vec.server
 <dir>`` exposes), and exercises the endpoints — including the micro-batched
 ``/knn`` path, which coalesces concurrent single-query clients into one
 device call (the reference's serving story is the Postgres backend itself;
@@ -20,14 +20,14 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from postgres_word2vec_tpu.utils.config import apply_platform_from_env
+from postgres_word2vec.utils.config import init_compile_cache
 
-apply_platform_from_env()
+init_compile_cache()
 
 import numpy as np  # noqa: E402
 
-from postgres_word2vec_tpu import Freddy, VectorStore  # noqa: E402
-from postgres_word2vec_tpu.server import QueryServer  # noqa: E402
+from postgres_word2vec import Freddy, VectorStore  # noqa: E402
+from postgres_word2vec.server import QueryServer  # noqa: E402
 
 
 def post(port, path, payload):

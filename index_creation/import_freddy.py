@@ -16,7 +16,7 @@ restores with ``COPY <table> FROM``:
     python index_creation/import_freddy.py export <engine_dir> <dump_dir>
 
 Custom table names: pass ``role=table`` pairs after the directories (roles:
-see ``postgres_word2vec_tpu.utils.migrate.DEFAULT_TABLES``).
+see ``postgres_word2vec.utils.migrate.DEFAULT_TABLES``).
 """
 
 from __future__ import annotations
@@ -27,12 +27,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from postgres_word2vec_tpu.utils.config import INFO, Logger
+from postgres_word2vec.utils.config import INFO, Logger
 
 
 def main(argv: list[str]) -> None:
-    from postgres_word2vec_tpu.api import Freddy
-    from postgres_word2vec_tpu.utils import migrate
+    from postgres_word2vec.api import Freddy
+    from postgres_word2vec.utils import migrate
 
     mode, src, dst = argv[0], Path(argv[1]), Path(argv[2])
     tables = dict(pair.split("=", 1) for pair in argv[3:])
@@ -58,8 +58,8 @@ def main(argv: list[str]) -> None:
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     if len(sys.argv) < 4:
         print(__doc__)
         sys.exit(1)

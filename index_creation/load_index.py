@@ -15,10 +15,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from postgres_word2vec_tpu.models.ivfadc import IVFADCIndex
-from postgres_word2vec_tpu.models.ivpq import IVPQIndex
-from postgres_word2vec_tpu.models.pq import PQIndex
-from postgres_word2vec_tpu.store import VectorStore
+from postgres_word2vec.models.ivfadc import IVFADCIndex
+from postgres_word2vec.models.ivpq import IVPQIndex
+from postgres_word2vec.models.pq import PQIndex
+from postgres_word2vec.store import VectorStore
 
 LOADERS = {"pq": PQIndex.load, "ivfadc": IVFADCIndex.load,
            "ivpq": IVPQIndex.load}
@@ -46,8 +46,8 @@ def main(store_path: str, index_path: str, index_type: str) -> None:
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     if len(sys.argv) != 4:
         print(__doc__)
         sys.exit(1)

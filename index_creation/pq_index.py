@@ -20,9 +20,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-from postgres_word2vec_tpu.models.pq import PQIndex
-from postgres_word2vec_tpu.store import VectorStore
-from postgres_word2vec_tpu.utils.config import Configuration, INFO, Logger
+from postgres_word2vec.models.pq import PQIndex
+from postgres_word2vec.store import VectorStore
+from postgres_word2vec.utils.config import Configuration, INFO, Logger
 
 
 def main(config_path: str) -> None:
@@ -44,8 +44,8 @@ def main(config_path: str) -> None:
 
 
 if __name__ == "__main__":
-    from postgres_word2vec_tpu.utils.config import apply_platform_from_env
-    apply_platform_from_env()
+    from postgres_word2vec.utils.config import init_compile_cache
+    init_compile_cache()
     if len(sys.argv) != 2:
         print(__doc__)
         sys.exit(1)

@@ -12,7 +12,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from postgres_word2vec_tpu.utils import native_io
+from postgres_word2vec.utils import native_io
 
 
 def main(src: str, dst: str, max_words: int | None = None) -> None:

@@ -1,4 +1,4 @@
-// fastio — native data-plane for postgres_word2vec_tpu.
+// fastio — native data-plane for postgres_word2vec.
 //
 // Replaces the reference's Python/gensim embedding loaders
 // (index_creation/index_utils.py:8-40 text parser; transform_vecs.py's

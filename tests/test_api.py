@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu import Freddy, VectorStore
-from postgres_word2vec_tpu.models.ivpq import EXACT_CALC
+from postgres_word2vec import Freddy, VectorStore
+from postgres_word2vec.models.ivpq import EXACT_CALC
 
 
 def _make_store(n=400, d=24, seed=11):
@@ -270,25 +270,10 @@ def test_chunked_q_ragged_tail(engine):
     np.testing.assert_array_equal(np.asarray(i), np.asarray(want_i))
 
 
-def test_set_pq_lut_dtype(engine):
-    """int8 LUT knob: validated values; CPU backend keeps auto-select
-    (the XLA gather path has no quantized variant) and results stay
-    identical."""
-    import pytest
-
-    engine.set_knn_function("k_nearest_neighbour_pq")
-    base = engine.knn("w100", 5)
-    engine.set_pq_lut_dtype("int8")
-    assert engine._pq_impl() is None        # CPU: no pallas backend
-    assert engine.knn("w100", 5) == base
-    engine.set_pq_lut_dtype("bf16")
-    with pytest.raises(ValueError):
-        engine.set_pq_lut_dtype("fp8")
-
-
 def test_set_pv_shortlist(engine):
     """PV shortlist knob: validated values, plumbed through the PV knn
-    core, and CPU results stay identical (approx_min_k is exact on CPU)."""
+    core, and CPU results stay identical (the CPU reference answers
+    approximate top-k requests exactly)."""
     import pytest
 
     engine.set_knn_function("k_nearest_neighbour_pq_pv")
@@ -301,9 +286,9 @@ def test_set_pv_shortlist(engine):
     engine.set_knn_function("k_nearest_neighbour")
 
 
-def test_warmup_honors_pq_lut_dtype(engine, monkeypatch):
-    """warmup() must precompile the SAME impl serving will use — an int8
-    knob with a bf16 warmup defeats cold-start hygiene (review r3)."""
+def test_warmup_covers_each_family(engine, monkeypatch):
+    """warmup() precompiles the PQ scan with the impl serving resolves
+    (None: the backend's plan) and touches every built family."""
     calls = []
     orig = type(engine.pq).search
 
@@ -312,14 +297,24 @@ def test_warmup_honors_pq_lut_dtype(engine, monkeypatch):
         return orig(self, q, k, **kw)
 
     monkeypatch.setattr(type(engine.pq), "search", spy)
-    engine.set_pq_lut_dtype("int8")
-    try:
-        engine.warmup(k=2, join_targets=16)
-    finally:
-        engine.set_pq_lut_dtype("bf16")
-    # CPU backend: _pq_impl() resolves to None (no pallas) — the point is
-    # that warmup passes whatever _pq_impl() returns, not a hardcoded None.
-    assert calls and all(c == engine._pq_impl() for c in calls)
+    engine.warmup(k=2, join_targets=16)
+    assert calls and all(c is None for c in calls)
+
+
+def test_join_impl_resolution(engine, monkeypatch):
+    """One decision for the join's distance phase: dense on the CPU
+    reference, budget when the kernels run, dense without target lists."""
+    from postgres_word2vec.ops import backend
+
+    ivpq = engine.ivpq
+    assert ivpq.join_impl() == "dense"
+    monkeypatch.setattr(backend, "use_kernels", lambda: True)
+    assert ivpq.join_impl() == "budget"
+    assert ivpq.join_impl(use_targetlists=False) == "dense"
+    assert ivpq.join_impl("dense") == "dense"
+    import pytest
+    with pytest.raises(ValueError):
+        ivpq.join_impl("pallas")
 
 
 def test_autotune_selects_and_applies(engine):

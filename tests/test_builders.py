@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from postgres_word2vec_tpu.models.builders import (IVFADCIndexCreator,
+from postgres_word2vec.models.builders import (IVFADCIndexCreator,
                                                    PQIndexCreator,
                                                    VectorFeeder)
 
@@ -30,7 +30,7 @@ def test_streaming_pq_equals_monolithic(rng):
         creator.index_batch(batch)
     idx = creator.finalize()
     # monolithic encode with the same codebook must give identical codes
-    from postgres_word2vec_tpu.ops import kmeans
+    from postgres_word2vec.ops import kmeans
     want = np.asarray(kmeans.encode_subspaces(jnp.asarray(v),
                                               creator.codebook.centroids))
     np.testing.assert_array_equal(np.asarray(idx.codes), want)

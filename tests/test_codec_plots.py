@@ -1,6 +1,6 @@
 import numpy as np
 
-from postgres_word2vec_tpu.utils import codec
+from postgres_word2vec.utils import codec
 
 
 def test_codec_roundtrips(rng):
@@ -31,7 +31,7 @@ def test_codec_column_roundtrip(rng):
 
 def test_confidence_bin_matches_scipy():
     from scipy import stats as sps
-    from postgres_word2vec_tpu.models.ivpq import confidence_bin
+    from postgres_word2vec.models.ivpq import confidence_bin
     mu = 200 * 0.1
     sig = np.sqrt(200 * 0.1 * 0.9)
     want = 1.0 - sps.norm.cdf((15 - 0.5 - mu) / sig)
@@ -40,7 +40,7 @@ def test_confidence_bin_matches_scipy():
 
 
 def test_plots_render(tmp_path):
-    from postgres_word2vec_tpu.evaluation import plots
+    from postgres_word2vec.evaluation import plots
     records = [
         {"method": 0, "alpha": 50, "time_s": 1.0, "precision": 0.4},
         {"method": 0, "alpha": 100, "time_s": 2.0, "precision": 0.6},
@@ -64,7 +64,7 @@ def test_html_report_structure(tmp_path):
     palette, no external resources."""
     import json as _json
 
-    from postgres_word2vec_tpu.evaluation.html_report import (
+    from postgres_word2vec.evaluation.html_report import (
         Figure, Series, figure_from_records, write_html_report)
 
     recs = [{"method": 0, "alpha": 50, "pvf": 10, "time_s": 0.05,

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu import Freddy, VectorStore
-from postgres_word2vec_tpu.evaluation import harness
+from postgres_word2vec import Freddy, VectorStore
+from postgres_word2vec.evaluation import harness
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +181,7 @@ def test_data_retrieval_zero_on_tile_cache_hit(engine):
 def test_host_exact_topk_matches_direct():
     """Chunked host ground-truth merge == direct full argsort (including a
     ragged tail chunk and a chunk smaller than k)."""
-    from postgres_word2vec_tpu.evaluation.benchutil import host_exact_topk
+    from postgres_word2vec.evaluation.benchutil import host_exact_topk
     rng = np.random.default_rng(3)
     table = rng.normal(size=(517, 16)).astype(np.float32)
     q = rng.normal(size=(9, 16)).astype(np.float32)

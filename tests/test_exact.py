@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu.models.exact import ExactIndex
+from postgres_word2vec.models.exact import ExactIndex
 
 
 def _brute(q, v, k):
@@ -23,7 +23,7 @@ def test_exact_search_small(rng):
 
 def test_exact_search_chunked(rng):
     # force the chunked path with a chunk smaller than n
-    from postgres_word2vec_tpu.models.exact import exact_top_k
+    from postgres_word2vec.models.exact import exact_top_k
     v = rng.normal(size=(1000, 8)).astype(np.float32)
     q = rng.normal(size=(2, 8)).astype(np.float32)
     d, i = exact_top_k(jnp.asarray(q), jnp.asarray(v), 7, chunk_size=128)
@@ -68,15 +68,40 @@ def test_bfloat16_mode_close_to_f32(rng):
     assert overlap >= 16
 
 
-def test_fused_mode_cpu_interpret_not_used(rng):
-    # fused mode requires the Pallas TPU path; on CPU, approx=False searches
-    # still route through the precast path and stay exact.
-    v = rng.normal(size=(300, 16)).astype(np.float32)
-    q = rng.normal(size=(2, 16)).astype(np.float32)
-    idx = ExactIndex(jnp.asarray(v), "float32", fused=True)
-    d, i = idx.search(jnp.asarray(q), 5, approx=False)
+def test_scan_chunk_from_device_memory(rng, monkeypatch):
+    """The default chunk comes from the device's memory limit: a small
+    limit forces the chunked path, whose answer equals brute force."""
+    from postgres_word2vec.models import exact as exact_mod
+    from postgres_word2vec.ops import backend
+
+    assert backend.scan_chunk(4, 10_000) == 10_000        # fits whole
+    monkeypatch.setattr(backend, "memory_limit_bytes", lambda: 32 * 4096)
+    assert backend.scan_chunk(4, 10_000, floor=64) == 256
+    v = rng.normal(size=(1000, 16)).astype(np.float32)
+    q = rng.normal(size=(4, 16)).astype(np.float32)
+    d, i = exact_mod.exact_top_k.__wrapped__(jnp.asarray(q), jnp.asarray(v),
+                                             5)
     wd, wi = _brute(q, v, 5)
     np.testing.assert_array_equal(np.asarray(i), wi)
+
+
+@pytest.mark.parametrize("impl,kernels,want", [
+    (None, False, False), (None, True, True), ("xla", True, False),
+    ("xla", False, False)])
+def test_kernels_for_impl(monkeypatch, impl, kernels, want):
+    """A search's ``impl`` resolves against the backend: None follows it,
+    "xla" always takes the reference."""
+    from postgres_word2vec.ops import backend
+
+    monkeypatch.setattr(backend, "use_kernels", lambda: kernels)
+    assert backend.kernels_for(impl) is want
+
+
+def test_kernels_for_rejects_unknown_impl():
+    from postgres_word2vec.ops import backend
+
+    with pytest.raises(ValueError):
+        backend.kernels_for("pallas")
 
 
 def test_int8_mode_recall(rng):
@@ -96,7 +121,7 @@ def test_int8_mode_recall(rng):
 
 
 def test_int8_quantization_roundtrip(rng):
-    from postgres_word2vec_tpu.models.exact import quantize_rows_int8
+    from postgres_word2vec.models.exact import quantize_rows_int8
     v = rng.normal(size=(50, 16)).astype(np.float32)
     q, s = quantize_rows_int8(jnp.asarray(v))
     assert q.dtype == jnp.int8
@@ -107,7 +132,7 @@ def test_int8_quantization_roundtrip(rng):
 def test_snap_chunk_divisor_selection():
     """_snap_chunk must return a dividing, 8-aligned chunk when one exists
     in [c/2, c] (no tail pad => no full-table copy), else pass through."""
-    from postgres_word2vec_tpu.models.exact import _snap_chunk
+    from postgres_word2vec.models.exact import _snap_chunk
 
     c = _snap_chunk(10_240_000, 1_048_576)
     assert 10_240_000 % c == 0 and c % 8 == 0 and 524_288 <= c <= 1_048_576
@@ -125,7 +150,7 @@ def test_exact_top_k_snapped_chunk_matches_unchunked(rng):
     to the single-chunk scan."""
     import jax.numpy as jnp
 
-    from postgres_word2vec_tpu.models.exact import exact_top_k
+    from postgres_word2vec.models.exact import exact_top_k
 
     v = jnp.asarray(rng.normal(size=(1000, 16)).astype(np.float32))
     q = jnp.asarray(rng.normal(size=(4, 16)).astype(np.float32))
@@ -166,13 +191,22 @@ def test_extended_matches_fresh_build(dtype):
     assert (np.asarray(i_in) >= 500).all()
 
 
-def test_extended_rejects_fused():
-    rng = np.random.default_rng(3)
-    v = jnp.asarray(rng.normal(size=(256, 16)).astype(np.float32))
-    idx = ExactIndex(v, "float32")
-    idx._size = 256
-    import dataclasses as dc
-    fused_like = dc.replace(idx)   # plain copy, then mark fused
-    fused_like.fused = True
-    with pytest.raises(ValueError, match="fused"):
-        fused_like.extended(v, v[:2])
+def test_approx_search_on_gpu_path_is_binned(rng, monkeypatch):
+    """With the GPU dispatch, ``approx=True`` takes the binned partial
+    reduction (not a full sort): recall stays high but is allowed to be
+    approximate; on the CPU reference it equals the exact answer."""
+    from postgres_word2vec.ops import backend
+
+    v = rng.normal(size=(40_000, 8)).astype(np.float32)
+    q = rng.normal(size=(4, 8)).astype(np.float32)
+    idx = ExactIndex(jnp.asarray(v), "float32")
+    _, exact_i = idx.search(jnp.asarray(q), 10, approx=False)
+    _, cpu_i = idx.search(jnp.asarray(q), 10, approx=True)
+    np.testing.assert_array_equal(np.asarray(cpu_i), np.asarray(exact_i))
+    monkeypatch.setattr(backend, "use_kernels", lambda: True)
+    idx2 = ExactIndex(jnp.asarray(v), "float32")
+    _, gpu_i = idx2.search(jnp.asarray(q), 10, approx=True)
+    hits = np.mean([len(set(a) & set(b)) / 10 for a, b in
+                    zip(np.asarray(gpu_i).tolist(),
+                        np.asarray(exact_i).tolist())])
+    assert hits >= 0.8

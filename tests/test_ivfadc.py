@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu.models.ivfadc import IVFADCIndex
+from postgres_word2vec.models.ivfadc import IVFADCIndex
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +45,7 @@ def test_full_probe_equals_exhaustive_adc(ivf, dataset):
     q = jnp.asarray(dataset[:4])
     d_all, i_all = ivf.search(q, 10, w=ivf.num_cells)
     # brute force: decode residual distances per row via LUTs
-    from postgres_word2vec_tpu.ops import lut
+    from postgres_word2vec.ops import lut
     coarse = np.asarray(ivf.coarse.centroids)
     assign = np.asarray(ivf.assignments)
     got_ids = np.asarray(i_all)
@@ -125,7 +125,7 @@ def test_add_and_roundtrip(ivf, dataset, tmp_path):
 def test_budget_probe_matches_padded_probe(ivf, dataset):
     """The tiled budget probe (full coverage) must reproduce the round-1
     padded probe bit-for-bit in distances and id sets."""
-    from postgres_word2vec_tpu.models.ivfadc import _ivfadc_probe
+    from postgres_word2vec.models.ivfadc import _ivfadc_probe
 
     q = jnp.asarray(dataset[:8])
     for w in (1, 3):
@@ -179,11 +179,11 @@ def test_search_adaptive_blacklist_matches_wide_probe(dataset):
                               k_coarse=80, train_size=None, iters=6)
     q = jnp.asarray(dataset[:6])
     d1, _, f1, _ = __import__(
-        "postgres_word2vec_tpu.models.ivfadc", fromlist=["x"]
+        "postgres_word2vec.models.ivfadc", fromlist=["x"]
     )._ivfadc_probe_budget(
         q, small.coarse.centroids, small.codebook.centroids, small.tiled(),
         w_lo=0, w_hi=2, k=20, p_budget=small._auto_budget(2, None, True),
-        block_t=small.tiled().block_t, use_pallas=False)
+        block_t=small.tiled().block_t, use_kernel=False)
     assert bool((np.asarray(f1) < 20).any()), "fixture must force escalation"
     d_esc, i_esc = small.search_adaptive(q, 20, w=2, max_rounds=2)
     d_wide, i_wide = small.search(q, 20, w=4)
@@ -194,8 +194,8 @@ def test_search_adaptive_blacklist_matches_wide_probe(dataset):
 def test_rowterm_decomposition_exact(ivf, dataset):
     """dist = LUT(q,code) + rowterm + (cd − ‖q‖²) must equal the direct
     residual ADC distance."""
-    from postgres_word2vec_tpu.models.ivfadc import _compute_rowterm
-    from postgres_word2vec_tpu.ops import lut as lut_mod
+    from postgres_word2vec.models.ivfadc import _compute_rowterm
+    from postgres_word2vec.ops import lut as lut_mod
 
     q = np.asarray(dataset[:3])
     cb = np.asarray(ivf.codebook.centroids)        # (m, k, dsub)
@@ -279,3 +279,61 @@ def test_tail_overflow_triggers_splice(dataset):
         assert (np.asarray(i) >= 0).all()
     finally:
         IVFADCIndex.TAIL_CAP = 8192
+
+
+@pytest.mark.parametrize("impl,kernels", [(None, False), (None, True),
+                                          ("xla", True)])
+def test_probe_impl_selects_path(ivf, dataset, monkeypatch, impl, kernels):
+    """``impl="xla"`` sends every IVFADC search to the XLA probe even
+    where the backend takes the kernel; both answer alike."""
+    from postgres_word2vec.models import ivfadc as ivf_mod
+    from postgres_word2vec.ops import backend
+
+    monkeypatch.setattr(backend, "use_kernels", lambda: kernels)
+    seen = []
+    orig = ivf_mod._ivfadc_probe_budget
+
+    def spy(*a, **kw):
+        seen.append(kw["use_kernel"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(ivf_mod, "_ivfadc_probe_budget", spy)
+    q = jnp.asarray(dataset[:4])
+    d1, i1 = ivf.search(q, 5, impl=impl)
+    d2, i2 = ivf.search_adaptive(q, 5, impl=impl)
+    d3, i3 = ivf.search_pv(q, 5, 4, jnp.asarray(dataset), impl=impl)
+    assert seen and set(seen) == {kernels and impl is None}
+    monkeypatch.setattr(ivf_mod, "_ivfadc_probe_budget", orig)
+    monkeypatch.setattr(backend, "use_kernels", lambda: False)
+    for (d, i), (wd, wi) in zip(
+            ((d1, i1), (d2, i2), (d3, i3)),
+            (ivf.search(q, 5), ivf.search_adaptive(q, 5),
+             ivf.search_pv(q, 5, 4, jnp.asarray(dataset)))):
+        np.testing.assert_array_equal(np.asarray(i), np.asarray(wi))
+        np.testing.assert_allclose(np.asarray(d), np.asarray(wd),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,kernel", [(3, True), (512, False)])
+def test_probe_kernel_only_below_batch_bound(ivf, dataset, monkeypatch,
+                                             batch, kernel):
+    """Where the kernel runs, batches from ``_PROBE_KERNEL_MAX_B`` queries
+    up still probe through the XLA twin, with the same answer."""
+    from postgres_word2vec.models import ivfadc as ivf_mod
+    from postgres_word2vec.ops import backend
+    from postgres_word2vec.ops import pallas_kernels as pk
+
+    assert (batch < ivf_mod._PROBE_KERNEL_MAX_B) is kernel
+    # a batch no other test compiles, so the probe program is traced here
+    q = jnp.asarray(dataset[:batch])
+    want_d, want_i = ivf.search(q, 5)
+    calls = []
+    orig = pk.budget_adc
+    monkeypatch.setattr(pk, "budget_adc",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    monkeypatch.setattr(backend, "use_kernels", lambda: True)
+    d, i = ivf.search(q, 5)
+    assert bool(calls) is kernel
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(want_i))
+    np.testing.assert_allclose(np.asarray(d), np.asarray(want_d), rtol=1e-5,
+                               atol=1e-5)

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from scipy import stats as sps
 
-from postgres_word2vec_tpu.models import ivpq as ivpq_mod
-from postgres_word2vec_tpu.models.ivpq import (EXACT_CALC, IVPQIndex, PQ_CALC,
+from postgres_word2vec.models import ivpq as ivpq_mod
+from postgres_word2vec.models.ivpq import (EXACT_CALC, IVPQIndex, PQ_CALC,
                                                PQ_PV_CALC, confidence_hyp)
 
 
@@ -179,7 +179,7 @@ def test_add_and_roundtrip(idx, dataset, tmp_path):
 
 
 def test_build_join_tiles_structure(idx, dataset):
-    from postgres_word2vec_tpu.models.ivpq import build_join_tiles
+    from postgres_word2vec.models.ivpq import build_join_tiles
 
     T = 900
     tids = jnp.arange(T, dtype=jnp.int32)
@@ -200,7 +200,7 @@ def test_build_join_tiles_structure(idx, dataset):
     # placed rows carry their own codes, grouped by cell within tiles
     codes_np = np.asarray(codes)
     cells_np = np.asarray(cells)
-    codes_al = np.asarray(jt.codes_t).T
+    codes_al = np.asarray(jt.codes)
     tile_start = np.asarray(jt.tile_start)
     tile_cnt = np.asarray(jt.tile_cnt)
     pos = np.nonzero(lids >= 0)[0]
@@ -227,8 +227,8 @@ def test_budget_join_matches_dense(idx, dataset, method):
     vd, idn = idx.search_join(q, 5, tids, impl="dense", **kw)
     vb, idb = idx.search_join(q, 5, tids, impl="budget",
                               budget_tiles=64, **kw)
-    # method 1 stores target vectors bf16 in the tiled layout (the MXU fast
-    # path; f32 norms keep the error ~1e-3 like exact_top_k_precast).
+    # method 1 stores target vectors bf16 in the tiled layout (f32 norms
+    # keep the error ~1e-3 like exact_top_k_precast).
     rtol = 5e-3 if method == 1 else 1e-4
     np.testing.assert_allclose(np.asarray(vb), np.asarray(vd), rtol=rtol,
                                atol=5e-3 if method == 1 else 1e-4)
@@ -427,7 +427,7 @@ def test_search_join_requires_targets_or_prepared(idx, dataset):
 
 def test_budget_round_device_scan_matches_direct(idx, dataset, monkeypatch):
     """Batches above _BUDGET_SCAN_BLOCK stream through a device-side
-    lax.map inside ONE program (the SMEM-safe kernel shape). Shrink the
+    lax.map inside ONE program (bounded score blocks). Shrink the
     block so a small batch exercises the mapped path — incl. a ragged
     final block — and require bit-parity with the direct path."""
     T = 1000

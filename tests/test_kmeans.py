@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from postgres_word2vec_tpu.ops import kmeans
+from postgres_word2vec.ops import kmeans
 
 
 def test_pairwise_sqdist_matches_numpy(rng):
@@ -63,9 +63,8 @@ def test_encode_int16_for_large_k(rng):
 
 
 def test_encode_subspaces_chunked_matches_single(rng):
-    """Exercises the lax.map multi-chunk path (a TPU backend miscompile of
-    batched einsums inside lax.map motivated the per-subspace formulation —
-    this guards the chunk-boundary behavior)."""
+    """Exercises the multi-chunk path of the per-subspace encoder — this
+    guards the chunk-boundary behavior."""
     x = rng.normal(size=(1000, 12)).astype(np.float32)
     cb = jnp.asarray(rng.normal(size=(3, 8, 4)).astype(np.float32))
     one = kmeans.encode_subspaces(jnp.asarray(x), cb, chunk_size=2048)
@@ -86,7 +85,7 @@ def test_encode_residual_subspaces_matches_manual(rng):
 
 
 def test_assign_cells_chunked(rng):
-    from postgres_word2vec_tpu.models.ivpq import assign_cells
+    from postgres_word2vec.models.ivpq import assign_cells
     x = jnp.asarray(rng.normal(size=(700, 8)).astype(np.float32))
     cc = jnp.asarray(rng.normal(size=(2, 4, 4)).astype(np.float32))
     one = assign_cells(x, cc, chunk_size=4096)
@@ -171,7 +170,7 @@ def test_assign_with_dist_matches_assign(rng):
 def test_aniso_refine_eta1_is_plain_lloyd(rng):
     """η=1 anisotropic refinement == plain Lloyd continuation (weighted
     term vanishes; update reduces to the cluster mean)."""
-    from postgres_word2vec_tpu.ops import kmeans as km
+    from postgres_word2vec.ops import kmeans as km
 
     x = rng.normal(size=(500, 8)).astype(np.float32)
     res = km.kmeans(jax.random.PRNGKey(0), jnp.asarray(x), 8, iters=5)
@@ -188,7 +187,7 @@ def test_aniso_refine_eta1_is_plain_lloyd(rng):
 
 
 def test_aniso_refine_reduces_objective(rng):
-    from postgres_word2vec_tpu.ops import kmeans as km
+    from postgres_word2vec.ops import kmeans as km
 
     x = rng.normal(size=(2000, 10)).astype(np.float32)
     eta = 4.0
@@ -206,7 +205,7 @@ def test_aniso_refine_reduces_objective(rng):
 
 
 def test_encode_subspaces_aniso_eta1_matches_plain(rng):
-    from postgres_word2vec_tpu.ops import kmeans as km
+    from postgres_word2vec.ops import kmeans as km
 
     x = rng.normal(size=(300, 24)).astype(np.float32)
     cb = rng.normal(size=(4, 8, 6)).astype(np.float32)
@@ -219,7 +218,7 @@ def test_encode_subspaces_aniso_eta1_matches_plain(rng):
 def test_pqindex_build_aniso(rng):
     """PQIndex.build(aniso_eta=…) end-to-end: valid codes, sane recall,
     OPQ + aniso stack without error."""
-    from postgres_word2vec_tpu.models.pq import PQIndex
+    from postgres_word2vec.models.pq import PQIndex
 
     v = rng.normal(size=(2000, 24)).astype(np.float32)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)

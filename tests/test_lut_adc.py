@@ -1,7 +1,8 @@
+import jax
 import jax.numpy as jnp
 import numpy as np
 
-from postgres_word2vec_tpu.ops import adc, lut
+from postgres_word2vec.ops import adc, lut
 
 
 def _np_luts(q, cb):
@@ -102,3 +103,21 @@ def test_post_verify_reranks_exactly(rng):
                                rtol=1e-4)
     np.testing.assert_array_equal(np.asarray(ids),
                                   np.take_along_axis(cand, order, -1))
+
+
+def test_xla_scan_chunks_capped(rng):
+    """The XLA gather scan takes chunks of at most ``_XLA_CHUNK`` rows
+    whatever memory allows (two here, the last clamped to end at row n and
+    its overlap masked), and answers like brute force."""
+    n = adc._XLA_CHUNK + 5
+    codes = rng.integers(0, 16, size=(n, 2)).astype(np.uint8)
+    luts = rng.random((1, 2, 16)).astype(np.float32)
+    jaxpr = str(jax.make_jaxpr(lambda l, c: adc.adc_top_k(l, c, 3))(
+        jnp.asarray(luts), jnp.asarray(codes)))
+    assert "length=2" in jaxpr
+    d, i = adc.adc_top_k(jnp.asarray(luts), jnp.asarray(codes), 3)
+    full = luts[0, 0, codes[:, 0]] + luts[0, 1, codes[:, 1]]
+    np.testing.assert_allclose(np.asarray(d)[0], np.sort(full)[:3],
+                               rtol=1e-6)
+    np.testing.assert_allclose(full[np.asarray(i)[0]], np.asarray(d)[0],
+                               rtol=1e-6)

@@ -9,8 +9,8 @@ ivpq.py:20-58)."""
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu import Freddy, VectorStore
-from postgres_word2vec_tpu.utils import codec, migrate
+from postgres_word2vec import Freddy, VectorStore
+from postgres_word2vec.utils import codec, migrate
 
 
 def _engine(n=300, d=24, seed=3):

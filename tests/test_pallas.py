@@ -1,449 +1,210 @@
-"""Pallas ADC kernel — validated in interpreter mode on CPU (the compiled
-path is exercised on real TPU by bench.py and the verify drive)."""
+"""Triton ADC kernels in Pallas interpret mode against the XLA references,
+plus a lowering of each kernel to Triton IR for the CUDA platform (what the
+GPU compiles, checked here without a GPU). Compiled-on-GPU parity is in
+``test_gpu_kernels.py``."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from postgres_word2vec_tpu.ops import adc, lut
-from postgres_word2vec_tpu.ops import pallas_kernels as pk
+from postgres_word2vec.ops import adc
+from postgres_word2vec.ops import pallas_kernels as pk
 
-
-def test_adc_scan_pallas_matches_gather_path(rng):
-    B, m, k, n = 4, 6, 16, 1024
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    want = np.asarray(adc.adc_distances(luts, jnp.asarray(codes)))
-    got = np.asarray(pk.adc_scan_pallas(luts, jnp.asarray(codes.T),
-                                        block_n=256, interpret=True))
-    # kernel uses bf16 LUTs: tolerate relative error ~1e-2
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+# (m, k, code dtype): the PQ/IVFADC default, the 4-bit quality preset, the
+# IVPQ fine codebook, and a 1024-centroid int16 table.
+REGIMES = [(12, 256, np.uint8), (60, 16, np.uint8), (30, 32, np.uint8),
+           (12, 1024, np.int16)]
 
 
-def test_adc_distances_auto_cpu_fallback(rng):
-    B, m, k, n = 2, 4, 8, 100
-    cb = jnp.asarray(rng.normal(size=(m, k, 3)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 12)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    assert not pk.supports_pallas()  # conftest forces CPU
-    got = np.asarray(adc.adc_distances_auto(luts, jnp.asarray(codes), False))
-    want = np.asarray(adc.adc_distances(luts, jnp.asarray(codes)))
-    np.testing.assert_allclose(got, want)
+def _tol(m):
+    """Absolute bound for a sum of m f32 lookups of magnitude ≤ 1 taken in
+    another order."""
+    return m * 2e-6
 
 
-def test_adc_binned_scan_interpret(rng):
-    """Binned kernel: every bin's min/argmin must match the dense scan."""
-    B, m, k, n = 4, 6, 16, 1024
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    dense = np.asarray(pk.adc_scan_pallas(luts, jnp.asarray(codes.T),
-                                          block_n=256, interpret=True))
-    mins, ids = pk.adc_scan_binned_pallas(luts, jnp.asarray(codes.T),
-                                          block_n=256, bins=128,
-                                          interpret=True)
-    mins, ids = np.asarray(mins), np.asarray(ids)
-    assert mins.shape == (B, (n // 256) * 128)
-    # strided bins: within each 256-tile, bin j = rows {j, j+128}
-    binned = dense.reshape(B, -1, 2, 128).min(axis=2).reshape(B, -1)
-    # the kernel packs the sub-bin index into the low mantissa bits, so the
-    # reported min is the true min floored by <= 2^-22 relative and the id
-    # points at a value within the same tolerance of the bin minimum.
-    np.testing.assert_allclose(mins, binned, rtol=1e-5)
-    np.testing.assert_allclose(np.take_along_axis(dense, ids, axis=-1),
-                               binned, rtol=1e-5)
+def _case(rng, m, k, dt, n=1100, B=5):
+    """N and B deliberately not multiples of any block size."""
+    luts = rng.random((B, m, k)).astype(np.float32)
+    codes = rng.integers(0, k, size=(n, m)).astype(dt)
+    return jnp.asarray(luts), jnp.asarray(codes)
 
 
-def test_fused_exact_scan_interpret(rng):
-    B, d, n = 8, 16, 512
-    v = rng.normal(size=(n, d)).astype(np.float32)
-    q = rng.normal(size=(B, d)).astype(np.float32)
-    norms = (v ** 2).sum(-1)
-    dists_true = ((q[:, None, :] - v[None]) ** 2).sum(-1)
-    tiled, norms_p, valid = pk.tile_table(jnp.asarray(v), block_n=256,
-                                          dtype=jnp.float32)
-    assert valid == n
-    mins, ids = pk.fused_exact_scan_pallas(
-        jnp.asarray(q), tiled, norms_p, bins=128, interpret=True)
-    mins, ids = np.asarray(mins), np.asarray(ids)
-    # shifted scores: min + qq == true distance at the argmin position
-    qq = (q ** 2).sum(-1, keepdims=True)
-    np.testing.assert_allclose(
-        np.take_along_axis(dists_true, ids, axis=-1), mins + qq,
-        rtol=1e-3, atol=1e-3)
-
-    d2, i2 = pk.fused_exact_top_k(jnp.asarray(q), tiled, norms_p, 5,
-                                  valid_n=valid, bins=128, interpret=True)
-    # with bin width 2, top-5 should essentially match brute force
-    want = np.argsort(dists_true, -1)[:, :5]
-    overlap = np.mean([len(set(a) & set(b)) / 5
-                       for a, b in zip(np.asarray(i2), want)])
-    assert overlap > 0.9
+@pytest.mark.parametrize("m,k,dt", REGIMES)
+@pytest.mark.parametrize("B", [1, 5])
+def test_adc_scan_pallas_matches_gather_path(rng, m, k, dt, B):
+    luts, codes = _case(rng, m, k, dt, B=B)
+    want = np.asarray(adc.adc_distances(luts, codes))
+    got = np.asarray(pk.adc_scan(luts, codes))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=_tol(m), rtol=0)
 
 
-def test_budget_adc_interpret_matches_xla(rng):
-    """budget_adc_pallas (interpret) vs budget_adc_xla on a synthetic tile
-    plan including the inf tile and intra-tile padding."""
-    from postgres_word2vec_tpu.ops import adc
-
-    B, m, k, block_t = 4, 6, 16, 128
-    nt = 5  # 4 real tiles + inf tile
-    na = (nt + 1) * block_t
-    codes_rows = rng.integers(0, k, size=(na, m)).astype(np.int32)
-    rowterm = rng.normal(size=(na,)).astype(np.float32)
-    # padding rows inside tile 2 and the whole inf tile
-    rowterm[2 * block_t + 100:3 * block_t] = np.inf
-    rowterm[nt * block_t:] = np.inf
-    luts = rng.normal(size=(B, m, k)).astype(np.float32)
-    tiles = np.array([[0, 1, 2], [3, nt, nt], [2, 0, 4], [4, 4, 4]],
-                     np.int32)
-
-    want = np.asarray(adc.budget_adc_xla(
-        jnp.asarray(luts), jnp.asarray(codes_rows), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t))
-    got = np.asarray(pk.budget_adc_pallas(
-        jnp.asarray(luts), jnp.asarray(codes_rows.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    assert got.shape == (B, 3 * block_t)
-    fin = np.isfinite(want)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    # bf16 LUT in the kernel: compare at bf16 tolerance
-    np.testing.assert_allclose(got[fin], want[fin], rtol=2e-2, atol=2e-2)
+@pytest.mark.parametrize("m,k,dt", REGIMES)
+def test_adc_binned_scan_interpret(rng, m, k, dt):
+    """Every bin's survivor is its true minimum; ids point at rows whose
+    distance equals it; bins past N are +inf."""
+    luts, codes = _case(rng, m, k, dt)
+    n = codes.shape[0]
+    dense = np.asarray(pk.adc_scan(luts, codes))
+    mins, ids = map(np.asarray, pk.adc_scan_binned(luts, codes))
+    bb, w, sub = pk._block(5, binned=True)
+    n_tiles = -(-n // (sub * w))
+    assert mins.shape == ids.shape == (5, n_tiles * w)
+    padded = np.full((5, n_tiles * sub * w), np.inf, np.float32)
+    padded[:, :n] = dense
+    want = padded.reshape(5, n_tiles, sub, w).min(axis=2).reshape(5, -1)
+    np.testing.assert_array_equal(mins, want)
+    fin = np.isfinite(mins)
+    assert (ids[fin] < n).all()
+    np.testing.assert_array_equal(np.take_along_axis(
+        dense, np.where(fin, ids, 0), axis=-1)[fin], mins[fin])
 
 
-def test_adc_scan_grouped_m_padding(rng):
-    """Small-k grouping with m % g != 0 (m=10, k=16 → g=8, 6 zero-LUT pad
-    subspaces) and a non-dividing k (k=12 → g=1) must both match the
-    gather path."""
-    for m, k in ((10, 16), (5, 12), (3, 32)):
-        d = m * 4
-        cb = jnp.asarray(rng.normal(size=(m, k, 4)).astype(np.float32))
-        q = jnp.asarray(rng.normal(size=(4, d)).astype(np.float32))
-        codes = rng.integers(0, k, size=(512, m)).astype(np.uint8)
-        luts = lut.build_luts(q, cb)
-        want = np.asarray(adc.adc_distances(luts, jnp.asarray(codes)))
-        got = np.asarray(pk.adc_scan_pallas(luts, jnp.asarray(codes.T),
-                                            block_n=256, interpret=True))
-        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2), (m, k)
-
-
-def test_narrow_code_dtypes_match_int32(rng):
-    """uint8/int8/int16 code streams produce bit-identical distances to the
-    int32 path: the kernels widen in VMEM, so the storage dtype must only
-    change HBM traffic, never results (incl. the budget tile-gather)."""
-    B, m, k, n = 4, 6, 200, 512   # k=200: uint8 codes reach 199
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes32 = rng.integers(0, k, size=(n, m)).astype(np.int32)
-    luts = lut.build_luts(q, cb)
-    ref = np.asarray(pk.adc_scan_pallas(luts, jnp.asarray(codes32.T),
-                                        block_n=256, interpret=True))
-    for dt in (np.uint8, np.int16):
-        got = np.asarray(pk.adc_scan_pallas(
-            luts, jnp.asarray(codes32.T.astype(dt)), block_n=256,
-            interpret=True))
-        np.testing.assert_array_equal(got, ref), dt
-    # int8 regime (k=16 codes fit signed bytes)
-    codes16 = rng.integers(0, 16, size=(n, m)).astype(np.int32)
-    cb16 = jnp.asarray(rng.normal(size=(m, 16, 5)).astype(np.float32))
-    luts16 = lut.build_luts(q, cb16)
-    ref16 = np.asarray(pk.adc_scan_pallas(luts16, jnp.asarray(codes16.T),
-                                          block_n=256, interpret=True))
-    got16 = np.asarray(pk.adc_scan_pallas(
-        luts16, jnp.asarray(codes16.T.astype(np.int8)), block_n=256,
-        interpret=True))
-    np.testing.assert_array_equal(got16, ref16)
-
-    # budget kernel: uint8 == int32
-    block_t = 128
-    nt = 3
-    na = (nt + 1) * block_t
-    codes_rows = rng.integers(0, k, size=(na, m)).astype(np.int32)
-    rowterm = rng.normal(size=(na,)).astype(np.float32)
-    rowterm[nt * block_t:] = np.inf
-    tiles = np.array([[0, 1], [2, nt], [1, 1], [nt, nt]], np.int32)
-    ref_b = np.asarray(pk.budget_adc_pallas(
-        luts, jnp.asarray(codes_rows.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    got_b = np.asarray(pk.budget_adc_pallas(
-        luts, jnp.asarray(codes_rows.T.astype(np.uint8)),
-        jnp.asarray(rowterm), jnp.asarray(tiles), block_t=block_t,
-        interpret=True))
-    np.testing.assert_array_equal(got_b, ref_b)
-
-
-def test_adc_top_k_binned_wrapper(rng):
-    """Binned top-k wrapper (interpret mode): k=1 equals the dense argmin;
-    every (id, val) pair is consistent with dense distances; valid_n
-    masking never returns padding ids."""
-    B, m, k, n = 4, 6, 16, 1024
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    ct = jnp.asarray(codes.T)
-    dense = np.asarray(pk.adc_scan_pallas(luts, ct, block_n=256,
-                                          interpret=True))
-    valid_n = 1000
-    masked = dense.copy()
-    masked[:, valid_n:] = np.inf
-
-    v1, i1 = pk.adc_top_k_binned_pallas(luts, ct, 1, valid_n=valid_n,
-                                        block_n=256, approx=False,
-                                        interpret=True)
-    np.testing.assert_array_equal(np.asarray(i1)[:, 0],
-                                  masked.argmin(axis=-1))
-    np.testing.assert_allclose(np.asarray(v1)[:, 0], masked.min(axis=-1),
-                               rtol=1e-6)
-
-    kk = 8
-    vals, ids = pk.adc_top_k_binned_pallas(luts, ct, kk, valid_n=valid_n,
-                                           block_n=256, approx=False,
-                                           interpret=True)
-    vals, ids = np.asarray(vals), np.asarray(ids)
+@pytest.mark.parametrize("n", [300, 5000])
+def test_adc_top_k_binned_wrapper(rng, n):
+    """k=1 is the exact argmin; k beyond the survivors pads +inf / −1."""
+    luts, codes = _case(rng, 6, 16, np.uint8, n=n)
+    dense = np.asarray(pk.adc_scan(luts, codes))
+    v1, i1 = pk.adc_top_k_binned(luts, codes, 1)
+    np.testing.assert_array_equal(np.asarray(i1)[:, 0], dense.argmin(-1))
+    bb, w, sub = pk._block(5, binned=True)
+    survivors = min(n, -(-n // (sub * w)) * w)
+    kk = survivors + 7
+    vals, ids = map(np.asarray, pk.adc_top_k_binned(luts, codes, kk))
+    assert vals.shape == (5, kk)
+    assert np.isinf(vals[:, -7:]).all() and (ids[:, -7:] == -1).all()
     fin = np.isfinite(vals)
-    bi = np.broadcast_to(np.arange(B)[:, None], ids.shape)
-    np.testing.assert_allclose(vals[fin], dense[bi[fin], ids[fin]],
-                               rtol=1e-6)
-    assert (ids[fin] < valid_n).all()
-    # per-row candidates are sorted ascending and unique
-    for b in range(B):
+    for b in range(5):
         row = ids[b][fin[b]]
         assert len(set(row.tolist())) == len(row)
         assert (np.diff(vals[b][fin[b]]) >= 0).all()
 
 
-def test_adc_scan_int8_matches_f32(rng):
-    """int8-LUT dense scan: per-query quantization bounds the absolute
-    error at m · scale/2 (scale = row max/127); ordering of true
-    neighbours must be preserved at recall tolerances."""
-    B, m, k, n = 4, 6, 16, 1024
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    want = np.asarray(adc.adc_distances(luts, jnp.asarray(codes)))
-    got = np.asarray(pk.adc_scan_pallas(luts, jnp.asarray(codes.T),
-                                        block_n=256, lut_dtype="int8",
-                                        interpret=True))
-    # error bound: m lookups, each off by <= scale/2 = row_max/254
-    row_max = np.asarray(luts).reshape(B, -1).max(axis=1)
-    bound = m * row_max / 254 * 1.01
-    assert (np.abs(got - want) <= bound[:, None]).all()
-    # top-10 by int8 distances must be drawn from the true top-32
-    true_rank = np.argsort(want, axis=1)
-    top32 = [set(r[:32]) for r in true_rank]
-    got_top10 = np.argsort(got, axis=1)[:, :10]
-    for b in range(B):
-        assert sum(i in top32[b] for i in got_top10[b]) >= 9
+@pytest.mark.parametrize("n,chunk", [(1024, 256), (1000, 256),
+                                     (300, 4096)])
+def test_adc_top_k_kernel_chunks_match_reference(rng, n, chunk):
+    """Chunked exact top-k through the kernel: the clamped last chunk
+    (n not a multiple of chunk) neither drops nor repeats rows."""
+    luts, codes = _case(rng, 12, 256, np.uint8, n=n)
+    dense = np.asarray(adc.adc_distances(luts, codes))
+    vals, ids = adc.adc_top_k(luts, codes, 10, chunk_size=chunk,
+                              use_kernel=True)
+    np.testing.assert_array_equal(np.asarray(ids),
+                                  np.argsort(dense, -1, kind="stable")[:, :10])
+    np.testing.assert_allclose(np.asarray(vals),
+                               np.sort(dense, -1)[:, :10], rtol=1e-6)
 
 
-def test_adc_binned_int8_matches_dense_int8(rng):
-    """The int8 binned kernel's packed argmin is EXACT (int sums shifted,
-    no mantissa floor): per-bin mins must equal the binned reduction of
-    the int8 dense output bit-for-bit, and ids must point at them."""
-    B, m, k, n = 4, 6, 16, 1024
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    ct = jnp.asarray(codes.T)
-    dense = np.asarray(pk.adc_scan_pallas(luts, ct, block_n=256,
-                                          lut_dtype="int8", interpret=True))
-    mins, ids = pk.adc_scan_binned_pallas(luts, ct, block_n=256, bins=128,
-                                          lut_dtype="int8", interpret=True)
-    mins, ids = np.asarray(mins), np.asarray(ids)
-    assert mins.shape == (B, (n // 256) * 128)
-    binned = dense.reshape(B, -1, 2, 128).min(axis=2).reshape(B, -1)
-    np.testing.assert_array_equal(mins, binned)
-    np.testing.assert_array_equal(
-        np.take_along_axis(dense, ids, axis=-1), binned)
+def test_adc_top_k_more_than_rows(rng):
+    """k larger than the table: the tail is +inf with id −1, on both the
+    kernel and the reference path."""
+    luts, codes = _case(rng, 6, 16, np.uint8, n=40)
+    for use_kernel in (False, True):
+        vals, ids = map(np.asarray, adc.adc_top_k(luts, codes, 50,
+                                                  use_kernel=use_kernel))
+        assert np.isfinite(vals[:, :40]).all()
+        assert np.isinf(vals[:, 40:]).all() and (ids[:, 40:] == -1).all()
+        assert sorted(ids[0, :40].tolist()) == list(range(40))
 
 
-def test_adc_top_k_binned_int8_wrapper(rng):
-    """End-to-end binned top-k on the int8 path: k=1 equals the int8 dense
-    argmin and valid_n masking holds."""
-    B, m, k, n = 4, 6, 16, 1024
-    cb = jnp.asarray(rng.normal(size=(m, k, 5)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, 30)).astype(np.float32))
-    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
-    luts = lut.build_luts(q, cb)
-    ct = jnp.asarray(codes.T)
-    dense = np.asarray(pk.adc_scan_pallas(luts, ct, block_n=256,
-                                          lut_dtype="int8", interpret=True))
-    valid_n = 1000
-    masked = dense.copy()
-    masked[:, valid_n:] = np.inf
-    v1, i1 = pk.adc_top_k_binned_pallas(luts, ct, 1, valid_n=valid_n,
-                                        block_n=256, approx=False,
-                                        lut_dtype="int8", interpret=True)
-    np.testing.assert_array_equal(np.asarray(i1)[:, 0],
-                                  masked.argmin(axis=-1))
-    np.testing.assert_allclose(np.asarray(v1)[:, 0], masked.min(axis=-1),
-                               rtol=1e-6)
-
-
-def _budget_setup(rng, B=12, m=6, k=32, block_t=128, nt=5, P=4, d=30):
-    cb = jnp.asarray(rng.normal(size=(m, k, d // m)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(B, d)).astype(np.float32))
+def _budget_case(rng, m=6, k=32, block_t=128, nt=5, B=12, P=4,
+                 dt=np.uint8):
     na = (nt + 1) * block_t
-    codes = rng.integers(0, k, size=(na, m)).astype(np.uint8)
+    codes = rng.integers(0, k, size=(na, m)).astype(dt)
     rowterm = rng.normal(size=(na,)).astype(np.float32)
-    rowterm[nt * block_t:] = np.inf
-    luts = lut.build_luts(q, cb)
+    rowterm[2 * block_t + 100:3 * block_t] = np.inf   # padding in a tile
+    rowterm[nt * block_t:] = np.inf                   # the inf tile
+    luts = rng.random((B, m, k)).astype(np.float32)
     tiles = rng.integers(0, nt, size=(B, P)).astype(np.int32)
-    tiles[3, 2] = nt          # unused slot -> inf tile
-    tiles[7, :] = 0           # heavy sharing: whole row on one tile
-    return q, luts, codes, rowterm, tiles, block_t
+    tiles[3, 2] = nt                                  # unused slots
+    tiles[7, :] = nt
+    return (jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(rowterm),
+            jnp.asarray(tiles), block_t)
 
 
-def test_budget_adc_grouped_matches_per_query(rng):
-    """Tile-grouped budget ADC == per-query kernel on every finite entry
-    (shared tiles, inf-tile slots, B not a multiple of 8)."""
-    _, luts, codes, rowterm, tiles, block_t = _budget_setup(rng)
-    ref = np.asarray(pk.budget_adc_pallas(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    got = np.asarray(pk.budget_adc_grouped_pallas(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    fin = np.isfinite(ref)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-6, atol=1e-6)
-
-
-def test_budget_exact_grouped_matches_per_query(rng):
-    q, _, _, _, tiles, block_t = _budget_setup(rng)
-    na = (5 + 1) * block_t
-    vecs = rng.normal(size=(na, 30)).astype(np.float32)
-    rownorm = (vecs * vecs).sum(axis=1)
-    rownorm[5 * block_t:] = np.inf
-    ref = np.asarray(pk.budget_exact_pallas(
-        q, jnp.asarray(vecs.T), jnp.asarray(rownorm), jnp.asarray(tiles),
-        block_t=block_t, interpret=True))
-    got = np.asarray(pk.budget_exact_grouped_pallas(
-        q, jnp.asarray(vecs.T), jnp.asarray(rownorm), jnp.asarray(tiles),
-        block_t=block_t, interpret=True))
-    fin = np.isfinite(ref)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-5)
-
-
-def test_group_probe_layout_bounds_and_coverage(rng):
-    """Every (query, slot) pair lands on exactly one grouped row; its
-    group's tile matches; groups stay within the static bound."""
-    B, P, nt = 40, 6, 4
-    tiles = jnp.asarray(rng.integers(0, nt + 1, size=(B, P)).astype(np.int32))
-    groups = -(-B * P // 8) + nt + 1
-    qidx, tog, row = pk._group_probe_layout(tiles, B, P, groups, nt)
-    qidx, tog, row = map(np.asarray, (qidx, tog, row))
-    flat = np.asarray(tiles).reshape(-1)
-    assert sorted(row.tolist()) == sorted(set(row.tolist()))  # injective
-    for i, r in enumerate(row):
-        g, s = divmod(int(r), 8)
-        assert qidx[g, s] == i // P          # right query in the slot
-        assert tog[g] == flat[i]             # right tile for the group
-    # dummy slots carry the sentinel query index
-    used = np.zeros(groups * 8, bool)
-    used[row] = True
-    assert (qidx.reshape(-1)[~used] == B).all()
-
-
-def test_budget_auto_dispatch_bounds(rng):
-    """The auto dispatcher picks grouped when the program bound wins 2x
-    and the expanded-LUT copy stays small; results match the per-query
-    kernel either way."""
-    _, luts, codes, rowterm, tiles, block_t = _budget_setup(
-        rng, B=64, P=8, nt=5)
-    # join regime: 512 probes over 6 tiles -> grouped path selected
-    bp = 64 * 8
-    assert (bp // 8 + 6) * 2 < bp
-    got = np.asarray(pk.budget_adc_auto(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    ref = np.asarray(pk.budget_adc_pallas(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    fin = np.isfinite(ref)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-6, atol=1e-6)
-    # sparse regime: bound loses -> per-query kernel (same contract)
-    sparse = jnp.asarray(tiles[:2, :2])
-    got2 = np.asarray(pk.budget_adc_auto(
-        luts[:2], jnp.asarray(codes.T), jnp.asarray(rowterm),
-        sparse, block_t=block_t, interpret=True))
-    ref2 = np.asarray(pk.budget_adc_pallas(
-        luts[:2], jnp.asarray(codes.T), jnp.asarray(rowterm),
-        sparse, block_t=block_t, interpret=True))
-    fin2 = np.isfinite(ref2)
-    np.testing.assert_allclose(got2[fin2], ref2[fin2], rtol=1e-6)
-
-
-def test_budget_adc_grouped_rows16(rng):
-    """rows=16 grouping (2 sublane tiles per group) matches per-query."""
-    _, luts, codes, rowterm, tiles, block_t = _budget_setup(
-        rng, B=24, P=5, nt=4)
-    ref = np.asarray(pk.budget_adc_pallas(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, interpret=True))
-    got = np.asarray(pk.budget_adc_grouped_pallas(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, rows=16, interpret=True))
-    fin = np.isfinite(ref)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-6, atol=1e-6)
-
-
-def test_budget_adc_grouped_int8(rng):
-    """int8 grouped budget ADC == numpy emulation of the quantized sums
-    (exact: int32 accumulation + one f32 scale multiply + rowterm)."""
-    _, luts, codes, rowterm, tiles, block_t = _budget_setup(rng)
-    got = np.asarray(pk.budget_adc_grouped_pallas(
-        luts, jnp.asarray(codes.T), jnp.asarray(rowterm),
-        jnp.asarray(tiles), block_t=block_t, lut_dtype="int8",
-        interpret=True))
-    lq, scale = map(np.asarray, pk._quantize_luts_int8(luts))
-    B, P = tiles.shape
-    m = lq.shape[1]
-    want = np.empty((B, P * block_t), np.float32)
-    for b in range(B):
-        for p in range(P):
-            rows = tiles[b, p] * block_t + np.arange(block_t)
-            s = np.zeros(block_t, np.int64)
-            for j in range(m):
-                s += lq[b, j, codes[rows, j]]
-            want[b, p * block_t:(p + 1) * block_t] = (
-                s.astype(np.float32) * scale[b] + rowterm[rows])
+@pytest.mark.parametrize("m,k,dt", [(6, 32, np.uint8), (12, 256, np.uint8),
+                                    (3, 1024, np.int16)])
+def test_budget_adc_interpret_matches_xla(rng, m, k, dt):
+    luts, codes, rowterm, tiles, bt = _budget_case(rng, m=m, k=k, dt=dt)
+    want = np.asarray(adc.budget_adc_xla(luts, codes, rowterm, tiles,
+                                         block_t=bt))
+    got = np.asarray(pk.budget_adc(luts, codes, rowterm, tiles, block_t=bt))
+    assert got.shape == (12, 4 * bt)
     fin = np.isfinite(want)
     np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=1e-6)
+    assert not fin[7].any()                           # all slots unused
+    np.testing.assert_allclose(got[fin], want[fin], atol=1e-5, rtol=0)
 
 
-def test_budget_exact_auto_dispatch(rng):
-    """budget_exact_auto: grouped selected in the join regime, per-query
-    for sparse probes; identical finite outputs either way."""
-    q, _, _, _, tiles, block_t = _budget_setup(rng, B=64, P=8, nt=5)
-    na = (5 + 1) * block_t
-    vecs = rng.normal(size=(na, 30)).astype(np.float32)
-    rownorm = (vecs * vecs).sum(axis=1)
-    rownorm[5 * block_t:] = np.inf
-    ref = np.asarray(pk.budget_exact_pallas(
-        q, jnp.asarray(vecs.T), jnp.asarray(rownorm), jnp.asarray(tiles),
-        block_t=block_t, interpret=True))
-    got = np.asarray(pk.budget_exact_auto(
-        q, jnp.asarray(vecs.T), jnp.asarray(rownorm), jnp.asarray(tiles),
-        block_t=block_t, interpret=True))
-    fin = np.isfinite(ref)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-5)
-    got2 = np.asarray(pk.budget_exact_auto(
-        q[:2], jnp.asarray(vecs.T), jnp.asarray(rownorm),
-        jnp.asarray(tiles[:2, :2]), block_t=block_t, interpret=True))
-    ref2 = np.asarray(pk.budget_exact_pallas(
-        q[:2], jnp.asarray(vecs.T), jnp.asarray(rownorm),
-        jnp.asarray(tiles[:2, :2]), block_t=block_t, interpret=True))
-    fin2 = np.isfinite(ref2)
-    np.testing.assert_allclose(got2[fin2], ref2[fin2], rtol=1e-5)
+def test_adc_distances_auto_cpu_fallback(rng):
+    """The CPU backend takes the XLA reference; forcing the kernel runs it
+    interpreted with the same result."""
+    luts, codes = _case(rng, 4, 256, np.uint8, n=200)
+    want = np.asarray(adc.adc_distances(luts, codes))
+    np.testing.assert_array_equal(
+        np.asarray(adc.adc_distances_auto(luts, codes)), want)
+    np.testing.assert_allclose(
+        np.asarray(adc.adc_distances_auto(luts, codes, True)), want,
+        atol=1e-5)
+
+
+@pytest.mark.parametrize("dt,k", [(np.uint8, 256), (np.int16, 1024)])
+def test_narrow_code_dtypes_match_int32(rng, dt, k):
+    """Codes are read in their storage dtype: a uint8/int16 table scores
+    exactly like the same table widened to int32, dense and probed."""
+    luts, codes = _case(rng, 5, k, dt, n=700)
+    wide = codes.astype(jnp.int32)
+    np.testing.assert_array_equal(np.asarray(pk.adc_scan(luts, codes)),
+                                  np.asarray(pk.adc_scan(luts, wide)))
+    luts, codes, rowterm, tiles, bt = _budget_case(rng, m=4, k=k, dt=dt)
+    np.testing.assert_array_equal(
+        np.asarray(pk.budget_adc(luts, codes, rowterm, tiles, block_t=bt)),
+        np.asarray(pk.budget_adc(luts, codes.astype(jnp.int32), rowterm,
+                                 tiles, block_t=bt)))
+
+
+def _lower_for_cuda(fn, *specs):
+    """Lower through the Triton route for CUDA on the CPU host: every
+    Pallas lowering rule runs and the kernel becomes Triton IR inside a
+    ``__gpu$xla.gpu.triton`` custom call."""
+    exp = jax.export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(*specs)
+    return exp.mlir_module()
+
+
+S = jax.ShapeDtypeStruct
+LOWERINGS = {
+    "adc_12x256": (functools.partial(pk.adc_scan, interpret=False),
+                   S((256, 12, 256), jnp.float32), S((3_072_000, 12),
+                                                     jnp.uint8)),
+    "adc_60x16_b1": (functools.partial(pk.adc_scan, interpret=False),
+                     S((1, 60, 16), jnp.float32), S((3_072_000, 60),
+                                                    jnp.uint8)),
+    "adc_binned": (functools.partial(pk.adc_top_k_binned, k=10,
+                                     interpret=False),
+                   S((1024, 12, 1024), jnp.float32), S((3_072_000, 12),
+                                                       jnp.int16)),
+    "budget_adc": (functools.partial(pk.budget_adc, block_t=1024,
+                                     interpret=False),
+                   S((256, 12, 256), jnp.float32), S((4096 * 1024, 12),
+                                                     jnp.uint8),
+                   S((4096 * 1024,), jnp.float32), S((256, 16), jnp.int32)),
+    "budget_adc_double": (functools.partial(pk.budget_adc, block_t=256,
+                                            interpret=False),
+                          S((1024, 15, 1024), jnp.float32),
+                          S((400 * 256, 15), jnp.int32),
+                          S((400 * 256,), jnp.float32),
+                          S((1024, 16), jnp.int32)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOWERINGS))
+def test_kernel_lowers_for_cuda(name):
+    fn, *specs = LOWERINGS[name]
+    txt = _lower_for_cuda(fn, *specs)
+    assert "__gpu$xla.gpu.triton" in txt

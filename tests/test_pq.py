@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu.models.pq import PQIndex, online_codebook_update
+from postgres_word2vec.models.pq import PQIndex, online_codebook_update
 
 
 @pytest.fixture(scope="module")
@@ -62,8 +62,8 @@ def test_pq_pv_improves_recall(pq, dataset):
 
 
 def test_pq_pv_approx_shortlist_matches_exact_on_cpu(pq, dataset):
-    # On CPU approx_min_k falls back to exact, so the approx-shortlist
-    # plumbing must reproduce the exact-shortlist results bit-for-bit.
+    # The CPU reference answers approximate top-k requests exactly, so the
+    # approx-shortlist plumbing must reproduce the exact-shortlist results.
     q = jnp.asarray(dataset[:16])
     v = jnp.asarray(dataset)
     d_e, i_e = pq.search_pv(q, 10, pvf=10, vectors=v, shortlist="exact")
@@ -73,19 +73,19 @@ def test_pq_pv_approx_shortlist_matches_exact_on_cpu(pq, dataset):
 
 
 def test_pv_shortlist_auto_resolution(monkeypatch):
-    from postgres_word2vec_tpu.models import pq as pq_mod
-    from postgres_word2vec_tpu.ops import pallas_kernels as pk
-    # off-TPU: auto is always exact
-    monkeypatch.setattr(pk, "supports_pallas", lambda: False)
+    from postgres_word2vec.models import pq as pq_mod
+    from postgres_word2vec.ops import backend
+    # reference backend: auto is always exact
+    monkeypatch.setattr(backend, "use_kernels", lambda: False)
     assert pq_mod._resolve_shortlist("auto", 10, 20) == "exact"
-    # on TPU: approx only for wide shortlists (k*pvf >= 100)
-    monkeypatch.setattr(pk, "supports_pallas", lambda: True)
+    # kernel backend: approx only for wide shortlists (k*pvf >= 100)
+    monkeypatch.setattr(backend, "use_kernels", lambda: True)
     assert pq_mod._resolve_shortlist("auto", 10, 20) == "approx"
     assert pq_mod._resolve_shortlist("auto", 23, 1) == "exact"
-    # an explicit non-pallas impl keeps the exact shortlist even on TPU
+    # the explicit reference impl keeps the exact shortlist
     assert pq_mod._resolve_shortlist("auto", 10, 20, impl="xla") == "exact"
-    assert pq_mod._resolve_shortlist("auto", 10, 20,
-                                     impl="pallas") == "approx"
+    with pytest.raises(ValueError):
+        pq_mod._resolve_shortlist("auto", 10, 20, impl="pallas")
     # explicit values pass through; junk raises
     assert pq_mod._resolve_shortlist("exact", 10, 20) == "exact"
     assert pq_mod._resolve_shortlist("approx", 2, 2) == "approx"
@@ -93,47 +93,12 @@ def test_pv_shortlist_auto_resolution(monkeypatch):
         pq_mod._resolve_shortlist("fast", 10, 20)
 
 
-def test_transposed_codes_host_fallback(pq, monkeypatch):
-    """RESOURCE_EXHAUSTED on the on-device pad+transpose detours through
-    the host and produces the identical layout."""
-    from postgres_word2vec_tpu.models import pq as pq_mod
-
-    fresh = pq_mod.PQIndex(pq.codebook, pq.codes)
-    want = np.asarray(pq.transposed_codes())
-
-    import jax
-
-    def boom(codes, pad):
-        raise jax.errors.JaxRuntimeError("RESOURCE_EXHAUSTED: TPU error")
-
-    monkeypatch.setattr(pq_mod, "_pad_transpose", boom)
-    with pytest.warns(UserWarning, match="host copy"):
-        got = np.asarray(fresh.transposed_codes())
-    np.testing.assert_array_equal(got, want)
-    # non-OOM errors must still propagate
-    fresh2 = pq_mod.PQIndex(pq.codebook, pq.codes)
-    monkeypatch.setattr(
-        pq_mod, "_pad_transpose",
-        lambda c, p: (_ for _ in ()).throw(RuntimeError("other")))
-    with pytest.raises(RuntimeError, match="other"):
-        fresh2.transposed_codes()
-    # a NON-runtime error that merely mentions the OOM string propagates
-    # too (the fallback is keyed on the jax runtime error type).
-    fresh3 = pq_mod.PQIndex(pq.codebook, pq.codes)
-    monkeypatch.setattr(
-        pq_mod, "_pad_transpose",
-        lambda c, p: (_ for _ in ()).throw(
-            ValueError("wrapped RESOURCE_EXHAUSTED mention")))
-    with pytest.raises(ValueError, match="wrapped"):
-        fresh3.transposed_codes()
-
-
 def test_pq_search_in_matches_exhaustive_on_subset(pq, dataset):
     q = dataset[:3]
     targets = np.arange(0, 2000, 7, dtype=np.int32)
     d_in, i_in = pq.search_in(jnp.asarray(q), 5, jnp.asarray(targets))
     # exhaustive ADC distances restricted by hand
-    from postgres_word2vec_tpu.ops import adc, lut
+    from postgres_word2vec.ops import adc, lut
     luts = lut.build_luts(jnp.asarray(q), pq.codebook.centroids)
     full = np.asarray(adc.adc_distances(luts, pq.codes))
     sub = full[:, targets]
@@ -159,7 +124,7 @@ def test_online_add_updates_codebook_and_codes(pq, dataset):
 
 def test_online_update_running_mean_math():
     # one centroid per subspace → closed-form running mean
-    from postgres_word2vec_tpu.models.pq import PQCodebook
+    from postgres_word2vec.models.pq import PQCodebook
     cb = PQCodebook(jnp.zeros((1, 1, 2)), jnp.asarray([[2]], jnp.int32))
     x = jnp.asarray([[3.0, 6.0]])
     cb2, codes = online_codebook_update(cb, x)
@@ -181,7 +146,7 @@ def test_save_load_roundtrip(pq, tmp_path):
 
 def test_opq_rotation_orthogonal_and_recall(rng):
     import jax
-    from postgres_word2vec_tpu.models.pq import PQIndex
+    from postgres_word2vec.models.pq import PQIndex
 
     # anisotropic data where OPQ has something to learn
     n, d = 3000, 24
@@ -210,7 +175,7 @@ def test_opq_rotation_orthogonal_and_recall(rng):
     assert rec(opq) >= rec(plain) - 0.02  # ≥ plain up to noise
 
     # quantization error strictly improves on anisotropic data
-    from postgres_word2vec_tpu.models.pq import reconstruct
+    from postgres_word2vec.models.pq import reconstruct
     def mse(idx):
         y = v @ np.asarray(idx.rotation) if idx.rotation is not None else v
         rc = np.asarray(reconstruct(idx.codes, idx.codebook.centroids))
@@ -220,7 +185,7 @@ def test_opq_rotation_orthogonal_and_recall(rng):
 
 def test_opq_save_load_roundtrip(rng, tmp_path):
     import jax
-    from postgres_word2vec_tpu.models.pq import PQIndex
+    from postgres_word2vec.models.pq import PQIndex
 
     v = rng.normal(size=(500, 12)).astype(np.float32)
     idx = PQIndex.build(jax.random.PRNGKey(1), jnp.asarray(v), m=3, k=8,
@@ -240,7 +205,7 @@ def test_opq_save_load_roundtrip(rng, tmp_path):
 
 def test_opq_encode_rotation_fused_matches_explicit(rng):
     import jax
-    from postgres_word2vec_tpu.ops import kmeans as km
+    from postgres_word2vec.ops import kmeans as km
 
     v = rng.normal(size=(700, 12)).astype(np.float32)
     cb = jnp.asarray(rng.normal(size=(3, 8, 4)).astype(np.float32))
@@ -253,33 +218,36 @@ def test_opq_encode_rotation_fused_matches_explicit(rng):
     np.testing.assert_array_equal(np.asarray(fused), np.asarray(explicit))
 
 
-def test_dense_nogo_explicit_pallas_raises(pq, monkeypatch):
-    """An EXPLICIT exact-kernel request past the dense no-go bar must not
-    silently degrade to the approximate binned kernel (ADVICE r2)."""
-    monkeypatch.setattr(PQIndex, "_DENSE_SCAN_BYTES", 1)
-    with pytest.raises(ValueError, match="pallas_binned"):
-        pq._search_plan(64, approx=False, impl="pallas")
+@pytest.mark.parametrize("kernels,approx,impl,mode", [
+    (False, False, None, "xla"), (False, True, None, "xla"),
+    (True, False, None, "dense"), (True, True, None, "binned"),
+    (True, True, "xla", "xla")])
+def test_search_plan_modes(pq, monkeypatch, kernels, approx, impl, mode):
+    from postgres_word2vec.ops import backend
+    monkeypatch.setattr(backend, "use_kernels", lambda: kernels)
+    assert pq._search_plan(approx, impl) == mode
 
 
-def test_dense_nogo_autoselect_warns(pq, monkeypatch):
-    from postgres_word2vec_tpu.ops import pallas_kernels as pk
-    monkeypatch.setattr(PQIndex, "_DENSE_SCAN_BYTES", 1)
-    monkeypatch.setattr(pk, "supports_pallas", lambda: True)
-    with pytest.warns(UserWarning, match="binned"):
-        mode, _, _ = pq._search_plan(64, approx=False, impl=None)
-    assert mode == "binned"
+def test_search_plan_rejects_unknown_impl(pq):
+    with pytest.raises(ValueError, match="impl"):
+        pq._search_plan(False, "pallas_int8")
 
 
-def test_dense_under_bar_stays_dense(pq):
-    mode, _, _ = pq._search_plan(64, approx=False, impl="pallas")
-    assert mode == "dense"
-
-
-def test_dense_nogo_int8_degrades_to_binned_i8(pq, monkeypatch):
-    """'pallas_int8' is a DTYPE preference (the engine knob resolves to
-    it), not an exactness demand: past the dense bar it must warn and
-    keep the int8 request on the binned kernel, not raise."""
-    monkeypatch.setattr(PQIndex, "_DENSE_SCAN_BYTES", 1)
-    with pytest.warns(UserWarning, match="binned"):
-        mode, _, _ = pq._search_plan(64, approx=False, impl="pallas_int8")
-    assert mode == "binned_i8"
+@pytest.mark.parametrize("approx", [False, True])
+def test_pq_kernel_modes_match_reference(pq, dataset, monkeypatch, approx):
+    """The GPU plan ("dense" / "binned" through the Triton kernels, run
+    interpreted here) against the XLA plan on the same index. The kernel
+    sums the same f32 LUT entries in another order, so near-tied
+    neighbours may swap: the exact mode keeps ≥ 0.95 of them with
+    distances within 1e-4, the binned mode (one survivor per strided bin
+    of 16 rows) keeps ≥ 0.9."""
+    from postgres_word2vec.ops import backend
+    q = jnp.asarray(dataset[:8])
+    want_d, want_i = pq.search(q, 10)
+    monkeypatch.setattr(backend, "use_kernels", lambda: True)
+    got_d, got_i = pq.search(q, 10, approx=approx)
+    recall = _recall(np.asarray(got_i), np.asarray(want_i))
+    assert recall >= (0.9 if approx else 0.95)
+    if not approx:
+        np.testing.assert_allclose(np.asarray(got_d), np.asarray(want_d),
+                                   atol=1e-4)

@@ -4,8 +4,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu import Freddy, VectorStore
-from postgres_word2vec_tpu.server import QueryServer
+from postgres_word2vec import Freddy, VectorStore
+from postgres_word2vec.server import QueryServer
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +89,7 @@ def test_knn_microbatching_coalesces(server):
     """Concurrent /knn requests must coalesce into shared device calls and
     all return correct results."""
     import threading
-    from postgres_word2vec_tpu.server import QueryServer
+    from postgres_word2vec.server import QueryServer
 
     srv = QueryServer(server.engine, port=0, batch_window_ms=60.0).start()
     try:
@@ -120,7 +120,7 @@ def test_knn_microbatch_isolates_bad_items(server):
     """One unknown word in a coalesced batch must fail ONLY its own
     request — concurrent valid queries still get 200s (round-2 review)."""
     import threading
-    from postgres_word2vec_tpu.server import QueryServer
+    from postgres_word2vec.server import QueryServer
 
     srv = QueryServer(server.engine, port=0, batch_window_ms=60.0).start()
     try:
@@ -190,7 +190,7 @@ def test_malformed_vector_fails_only_its_slot(server):
 def test_save_load_persists_exact_config(tmp_path):
     import numpy as np
 
-    from postgres_word2vec_tpu import Freddy, VectorStore
+    from postgres_word2vec import Freddy, VectorStore
 
     rng = np.random.default_rng(3)
     store = VectorStore.from_arrays(
@@ -215,7 +215,7 @@ def test_knn_in_microbatching_coalesces(server):
     same rows as the direct engine call."""
     import threading
 
-    from postgres_word2vec_tpu.server import QueryServer
+    from postgres_word2vec.server import QueryServer
 
     srv = QueryServer(server.engine, port=0, batch_window_ms=60.0).start()
     try:
@@ -251,7 +251,7 @@ def test_knn_in_microbatch_mixed_targets_and_bad_items(server):
     impl (IVPQ) falls back to per-item calls and still answers."""
     import threading
 
-    from postgres_word2vec_tpu.server import QueryServer
+    from postgres_word2vec.server import QueryServer
 
     srv = QueryServer(server.engine, port=0, batch_window_ms=60.0).start()
     try:

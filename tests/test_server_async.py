@@ -8,8 +8,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu import Freddy, VectorStore
-from postgres_word2vec_tpu.server_async import AsyncQueryServer
+from postgres_word2vec import Freddy, VectorStore
+from postgres_word2vec.server_async import AsyncQueryServer
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from postgres_word2vec_tpu.store import VectorStore, _load_text_embeddings_py
+from postgres_word2vec.store import VectorStore, _load_text_embeddings_py
 
 
 def _write_text(path, words, vecs):
@@ -114,16 +114,16 @@ def test_extend_inplace_matches_extend(sample):
 
 
 def test_extend_inplace_split_path_matches_fused(sample, monkeypatch):
-    """Above _FUSED_EXTEND_BYTES the insert concat runs as two sequential
-    per-table programs (the fused program's old+new transient of BOTH
-    tables RESOURCE_EXHAUSTs a 16 GB chip at 3M x 300 f32). Force the
-    split on a small store and require parity with the fused path."""
-    from postgres_word2vec_tpu import store as store_mod
+    """When the fused program's old+new transient of BOTH tables would
+    pass its share of device memory, the insert concat runs as two
+    sequential per-table programs. Force the split on a small store (a
+    tiny reported memory) and require parity with the fused path."""
+    from postgres_word2vec.ops import backend
     words, vecs, _ = sample
     s_fused = VectorStore.from_arrays(words, vecs)
     s_split = VectorStore.from_arrays(words, vecs)
     s_fused.extend_inplace(["n1", "n2"], vecs[:2] * 3)
-    monkeypatch.setattr(store_mod, "_FUSED_EXTEND_BYTES", 0)
+    monkeypatch.setattr(backend, "memory_limit_bytes", lambda: 1024)
     s_split.extend_inplace(["n1", "n2"], vecs[:2] * 3)
     np.testing.assert_allclose(np.asarray(s_split.vectors),
                                np.asarray(s_fused.vectors), rtol=1e-6)

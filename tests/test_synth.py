@@ -3,7 +3,7 @@
 import jax
 import numpy as np
 
-from postgres_word2vec_tpu.evaluation import synth
+from postgres_word2vec.evaluation import synth
 
 
 def test_wordlike_shapes_and_norms():

@@ -1,7 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from postgres_word2vec_tpu.ops import topk
+from postgres_word2vec.ops import topk
 
 
 def test_top_k_smallest_matches_sort(rng):
@@ -46,7 +47,7 @@ def test_chunked_top_k_equals_global(rng):
 
 
 def test_blockwise_top_k_exact(rng):
-    from postgres_word2vec_tpu.ops.topk import _blockwise_top_k_smallest
+    from postgres_word2vec.ops.topk import _blockwise_top_k_smallest
     d = rng.normal(size=(3, 20000)).astype(np.float32)
     vals, idx = _blockwise_top_k_smallest(jnp.asarray(d), 7, block=512)
     order = np.argsort(d, -1)[:, :7]
@@ -56,7 +57,7 @@ def test_blockwise_top_k_exact(rng):
 
 
 def test_blockwise_top_k_with_inf_padding(rng):
-    from postgres_word2vec_tpu.ops.topk import _blockwise_top_k_smallest
+    from postgres_word2vec.ops.topk import _blockwise_top_k_smallest
     d = rng.normal(size=(2, 1000)).astype(np.float32)   # 1000 % 512 != 0
     vals, idx = _blockwise_top_k_smallest(jnp.asarray(d), 5, block=512)
     order = np.argsort(d, -1)[:, :5]
@@ -71,23 +72,62 @@ def test_top_k_smallest_wide_rows_use_blockwise(rng):
 
 
 def test_use_blockwise_routing_rule():
-    """The exact-path routing rule fit to the on-chip grid
-    (scratch/topk_grid.json; reports/R4_REGRESSION_NOTE.md): CPU takes
-    blockwise for any row >= 64k; TPU only at k>=192 when the row is >=2M
-    or k>=512 — native lax.top_k won 2-8x at k<=50 everywhere, and the
-    blockwise-everywhere switch was round 3's PQ scan-family regression."""
-    from postgres_word2vec_tpu.ops.topk import _use_blockwise
+    """Exact-path routing: the CPU takes blockwise for any row >= 64k;
+    the GPU only for a few such rows (XLA's top_k wins from B=256 up)."""
+    from postgres_word2vec.ops.topk import _GPU_BLOCKWISE_ROWS, _use_blockwise
 
     # narrow rows and huge k never take blockwise
-    assert not _use_blockwise(4096, 10, is_tpu=False)
-    assert not _use_blockwise(3_072_000, 10_000, is_tpu=True)
+    assert not _use_blockwise(1, 4096, 10, on_gpu=False)
+    assert not _use_blockwise(1, 3_072_000, 10_000, on_gpu=False)
+    assert not _use_blockwise(1, 4096, 10, on_gpu=True)
     # CPU: any wide row
-    assert _use_blockwise(65_536, 5, is_tpu=False)
-    assert _use_blockwise(3_072_000, 200, is_tpu=False)
-    # TPU: the measured win regions only
-    assert not _use_blockwise(3_072_000, 10, is_tpu=True)    # r3 regression
-    assert not _use_blockwise(102_400, 200, is_tpu=True)     # native 67 vs 70
-    assert not _use_blockwise(1_048_576, 200, is_tpu=True)   # native 213 vs 219
-    assert _use_blockwise(3_072_000, 200, is_tpu=True)       # block 519 vs 574
-    assert _use_blockwise(102_400, 1000, is_tpu=True)        # block 80 vs 119
-    assert _use_blockwise(3_072_000, 1000, is_tpu=True)      # block 699 vs 1007
+    assert _use_blockwise(256, 65_536, 5, on_gpu=False)
+    assert _use_blockwise(1024, 3_072_000, 200, on_gpu=False)
+    # GPU: a single query's wide row, never a full batch
+    assert _use_blockwise(1, 3_072_000, 10, on_gpu=True)
+    assert _use_blockwise(_GPU_BLOCKWISE_ROWS, 3_072_000, 200, on_gpu=True)
+    assert not _use_blockwise(_GPU_BLOCKWISE_ROWS + 1, 3_072_000, 10,
+                              on_gpu=True)
+    assert not _use_blockwise(256, 3_072_000, 200, on_gpu=True)
+
+
+@pytest.mark.parametrize("k", [1, 10, 200])
+def test_approx_bins_meet_recall_target(k):
+    """L strided bins give expected recall 1 − (k−1)/(2L) ≥ the target."""
+    L = topk.approx_bins(k, 0.95)
+    assert L >= k and L & (L - 1) == 0
+    assert 1 - (k - 1) / (2 * L) >= 0.95
+
+
+@pytest.mark.parametrize("k", [10, 200])
+def test_binned_top_k_recall_and_consistency(rng, k):
+    d = rng.random((8, 100_003)).astype(np.float32)
+    vals, idx = topk._binned_top_k_smallest(jnp.asarray(d), k, 0.95)
+    vals, idx = np.asarray(vals), np.asarray(idx)
+    np.testing.assert_array_equal(np.take_along_axis(d, idx, -1), vals)
+    want = np.argsort(d, -1)[:, :k]
+    hits = np.mean([len(set(a) & set(b)) / k for a, b in
+                    zip(idx.tolist(), want.tolist())])
+    assert hits >= 0.9
+    assert (np.diff(vals, axis=-1) >= 0).all()
+
+
+def test_approx_dispatch(rng, monkeypatch):
+    """approx=True is exact on the CPU reference and binned on the GPU;
+    narrow rows fall back to exact either way."""
+    from postgres_word2vec.ops import backend
+    d = jnp.asarray(rng.random((2, 50_000)).astype(np.float32))
+    exact = np.asarray(topk.top_k_smallest(d, 10)[1])
+    np.testing.assert_array_equal(
+        np.asarray(topk.top_k_smallest(d, 10, approx=True)[1]), exact)
+    monkeypatch.setattr(backend, "use_kernels", lambda: True)
+    calls = []
+    orig = topk._binned_top_k_smallest
+    monkeypatch.setattr(topk, "_binned_top_k_smallest",
+                        lambda *a: calls.append(1) or orig(*a))
+    topk.top_k_smallest(d, 10, approx=True)
+    assert calls
+    small = d[:, :200]
+    np.testing.assert_array_equal(
+        np.asarray(topk.top_k_smallest(small, 10, approx=True)[1]),
+        np.argsort(np.asarray(small), -1)[:, :10])

@@ -3,10 +3,10 @@ import time
 
 import pytest
 
-from postgres_word2vec_tpu.utils.config import (Configuration, Logger,
-                                                apply_platform_from_env)
-from postgres_word2vec_tpu.utils.tracker import Tracker
-from postgres_word2vec_tpu.utils import profiling
+from postgres_word2vec.utils.config import (Configuration, Logger,
+                                                init_compile_cache)
+from postgres_word2vec.utils.tracker import Tracker
+from postgres_word2vec.utils import profiling
 
 
 def test_configuration(tmp_path):
@@ -53,7 +53,23 @@ def test_profiling_helpers(tmp_path):
     assert isinstance(stats, dict)
 
 
-def test_apply_platform_from_env_noop(monkeypatch):
-    # backend already initialized by the suite — must not raise
-    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
-    apply_platform_from_env()
+@pytest.mark.parametrize("env_set", [True, False])
+def test_init_compile_cache(monkeypatch, tmp_path, env_set):
+    """With JAX_COMPILATION_CACHE_DIR set the helper leaves JAX's own
+    setting alone; without it the cache goes to <repo>/.jax_cache."""
+    import jax
+    from pathlib import Path
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, val: calls.append((name, val)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert init_compile_cache() == str(tmp_path)
+        assert calls == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        got = init_compile_cache()
+        repo = Path(__file__).resolve().parents[1]
+        assert got == str(repo / ".jax_cache")
+        assert calls == [("jax_compilation_cache_dir", got)]

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from postgres_word2vec_tpu.ops import vector_ops as vo
+from postgres_word2vec.ops import vector_ops as vo
 
 
 def test_cosine_similarity_matches_numpy(rng):
